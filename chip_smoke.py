@@ -23,7 +23,24 @@ one card.  Phases, in order; any failure exits non-zero:
                 again; every kernel's launch count is read over this phase;
   6. timings -- per-view and per-kernel times (CUDA events, median of 5),
                 and one render under torch.profiler: the device's busy
-                share and its time by kernel and by operator.
+                share and its time by kernel and by operator;
+  7. train   -- the stage-3 training step at full width, with
+                configs/prod_texture.yaml's inverse UV net (8-level hash
+                grid), optim_cfg, loss_cfg and min-scale reset interval:
+                the 3 views of phase 5 (band texture) are the ground truth
+                (image, alpha as alpha_mask, normals), training starts from
+                the chessboard retexture at iteration 2501, where every
+                prod loss term is on and all three Adams step.  One step
+                captures the arguments each backward kernel and the hash
+                gather get; then STEPS steps are counted: every loss and
+                parameter must stay finite, the last 5 steps' mean loss
+                must lie below the first 5's, and kernels A, A', B, B' and
+                the hash gather must each launch once a step;
+  8. train kernels -- A', B' and the hash gather against their plain
+                versions on the captured arguments;
+  9. train timings -- the step's median time, each new kernel's time,
+                plain time, bound and (hash gather) library time, and one
+                step under torch.profiler.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -78,9 +95,43 @@ H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
 OPS_A_EVAL = 16
 OPS_A_SLOT = 60
 OPS_B_SLOT = 300   # seamless bilinear, the main path's filter
+# f32 operations of kernel A' per evaluated (pixel, pair) besides 3 F for
+# the channels (replay, suffix form, exponent gradient, block sums), per
+# in-list slot (intersection and its gradient); of kernel B' per live slot
+OPS_A_BWD_EVAL = 40
+OPS_A_BWD_SLOT = 90
+OPS_B_BWD_SLOT = 500
 # pixels of a frame where kernel A may stop one Gaussian apart from its
-# plain version (see check_kernel_a)
+# plain version (see check_kernel_a); Gaussians whose A' gradient may then
+# differ
 MAX_OFF_PIXELS = 16
+MAX_OFF_GAUSSIANS = 16
+
+# the training phase: configs/prod_texture.yaml's optim_cfg, loss_cfg and
+# train_cfg (min_scale_reset_interval); its joint phase starts after 2500
+OPTIM_CFG = {
+    "uv_net_lr": 0.00002, "inv_uv_net_lr": 0.00002,
+    "uv_net_milestones": [2500, 5000], "uv_net_gamma": 0.5,
+    "tex_optim_range": [0, None], "tex_lr": 0.0025,
+    "gaussian_optim_range": [2500, None], "position_lr_init": 0.0001,
+    "position_lr_final": 0.000001, "position_lr_delay_mult": 0.01,
+    "position_lr_max_steps": 7500, "opacity_lr": 0.05, "scaling_lr": 0.005,
+    "rotation_lr": 0.001,
+}
+LOSS_CFG = {
+    "lambda_dssim": 0.2, "rgb_range": [0, None],
+    "lambda_no_sh": 2.0, "rgb_no_sh_range": [2500, None],
+    "lambda_alpha": 1.0, "alpha_range": [2500, None],
+    "lambda_norm": 0.1, "norm_range": [2500, None],
+    "lambda_norm_smooth": 0.5, "norm_smooth_range": [2500, None],
+    "lambda_inverse": 0.1, "inverse_range": [2500, None],
+}
+TRAIN_CFG = {"min_scale_reset_interval": 250}
+FIRST_ITER = 2501
+STEPS = 20
+# the scene's camera extent, texgs's spatial_lr_scale: the orbit radius
+# times the 1.1 of its scene normalisation
+SPATIAL_LR_SCALE = 3.5 * 1.1
 
 
 def log(msg: str) -> None:
@@ -89,6 +140,17 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def timed_once(torch, fn):
+    """(fn(), its time in ms by CUDA events) for work too slow to repeat."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def median_ms(torch, fn, reps=REPS):
@@ -171,6 +233,44 @@ def swapped(module, name, fn):
         setattr(module, name, old)
 
 
+@contextlib.contextmanager
+def recording(module, name, seen):
+    """module.name records its positional arguments (tensors detached from
+    any graph) in seen[name] and calls through, inside the block, which
+    gets the recorder.  A kernel wrapper counts its launches through its
+    module's global name, so while the recorder is swapped in for a kernel
+    wrapper, the recorder's `launches` counts that kernel's launches."""
+    fn = getattr(module, name)
+
+    def wrapper(*args):
+        seen[name] = tuple(a.detach() if hasattr(a, "detach") else a
+                           for a in args)
+        return fn(*args)
+    wrapper.launches = 0
+    with swapped(module, name, wrapper):
+        yield wrapper
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes, n_ops):
+    """(bound ms, what bounds it) on the H100 SXM's data-sheet rates."""
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, n_ops / H100_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def entry(name, source, replaces, launches, ms, plain_ms, bound_ms, by, err,
+          library_ms=None):
+    """One kernel's object of the {"kernels": [...]} line."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": library_ms}
+
+
 def main_path_kernel_args(model, cam):
     """Render `cam` once and return the arguments the render handed the
     wrappers of kernel A and kernel B."""
@@ -178,25 +278,14 @@ def main_path_kernel_args(model, cam):
     from texgs_torch.kernels import uvtex_fused as kf
 
     seen = {}
-
-    def recording(name, fn):
-        def wrapper(*args, **kwargs):
-            seen[name] = (args, kwargs)
-            return fn(*args, **kwargs)
-        # a kernel wrapper counts its launch through its module's global
-        # name, which is this recorder while it is swapped in
-        wrapper.launches = 0
-        return wrapper
-
-    rec_a = recording("A", kf.fused_pairs)
-    rec_b = recording("B", kt.tex_term)
-    with swapped(kf, "fused_pairs", rec_a), swapped(kt, "tex_term", rec_b):
+    with recording(kf, "fused_pairs", seen) as rec_a, \
+            recording(kt, "tex_term", seen) as rec_b:
         model.render(cam)
-    if (set(seen) != {"A", "B"} or any(kw for _, kw in seen.values())
+    if (set(seen) != {"fused_pairs", "tex_term"}
             or (rec_a.launches, rec_b.launches) != (1, 1)):
-        fail(f"the render called the kernel wrappers as {seen.keys()}, "
+        fail(f"the render called the kernel wrappers {sorted(seen)}, "
              f"launches {rec_a.launches} and {rec_b.launches}")
-    return seen["A"][0], seen["B"][0]
+    return seen["fused_pairs"], seen["tex_term"]
 
 
 def plain_render(model, cam):
@@ -254,33 +343,33 @@ def edge_corner_mlist(n_tiles, m, device, torch, seed=5):
     return torch.as_tensor(ml, device=device).reshape(n_tiles, 256, m, 4)
 
 
-def profile_render(torch, model, cam, render_ms, top=12):
-    """torch.profiler over one render: the device's busy time, as a share
-    of the profiled render's wall time and of `render_ms` (the render's
-    median without the profiler), and by kernel and by operator."""
+def profile_device(torch, what, fn, median, top=12):
+    """torch.profiler over one call of fn (after one unprofiled call): the
+    device's busy time, as a share of the profiled call's wall time and of
+    `median` (fn's median without the profiler), and by kernel and by
+    operator."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
-        model.render(cam)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model.render(cam)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     if not kernels or busy_ms <= 0:
-        log("[profile] torch.profiler saw no device time: device busy share "
-            "not measured")
+        log(f"[profile] {what}: torch.profiler saw no device time: device "
+            "busy share not measured")
         return
-    log(f"[profile] one render of view 0 under torch.profiler: wall "
+    log(f"[profile] {what} under torch.profiler: wall "
         f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-        f"({busy_ms / wall_ms:.1%} of it, {busy_ms / render_ms:.1%} of the "
-        f"{render_ms:.3f} ms unprofiled median), "
+        f"({busy_ms / wall_ms:.1%} of it, {busy_ms / median:.1%} of the "
+        f"{median:.3f} ms unprofiled median), "
         f"{sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:top]:
         log(f"  kernel {e.device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
@@ -290,6 +379,283 @@ def profile_render(torch, model, cam, render_ms, top=12):
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  op     {e.self_device_time_total / 1e3:9.3f} ms  "
             f"x{e.count:<4d} {e.key[:90]}")
+
+
+def check_scaled(torch, name, got, want, rel_atol, rtol, max_off=0,
+                 rows=False):
+    """`got` against its plain version `want` at atol = rel_atol *
+    max|want| + rtol * |want|: a gradient's scale follows the loss's, so
+    the tolerance follows the values it compares.  With `rows`, an element
+    beyond marks its row (a Gaussian) off.  At most `max_off` elements
+    (rows) may be off.  Logs max and median |want| over its nonzero
+    elements and how many elements (rows) an output of zeros would put
+    beyond, and fails if that is within the allowance: the check must be
+    able to refuse such a kernel.  Returns the max abs error."""
+    err = (got - want).abs()
+    mag = want.abs()
+    atol = rel_atol * mag.max().item()
+    beyond = err > atol + rtol * mag
+    zero_beyond = mag > atol + rtol * mag
+    if rows:
+        beyond, zero_beyond = beyond.any(-1), zero_beyond.any(-1)
+    n_off, n_zero = int(beyond.sum()), int(zero_beyond.sum())
+    nonzero = mag[mag > 0]
+    median = nonzero.median().item() if nonzero.numel() else 0.0
+    max_err = err.max().item()
+    unit = "Gaussians" if rows else "values"
+    log(f"  {name}: max_abs_err {max_err:.3e}; |plain| max "
+        f"{mag.max().item():.3e}, median of {nonzero.numel()} nonzero "
+        f"{median:.3e}; {n_off} of {beyond.numel()} {unit} beyond atol "
+        f"{rel_atol:g} max|plain| = {atol:.3e} + rtol {rtol:g} (allowed "
+        f"{max_off}); zeros would put {n_zero} beyond")
+    if not (n_off <= max_off and math.isfinite(max_err)
+            and bool(torch.isfinite(got).all())):
+        fail(f"{name} disagrees with its plain version")
+    if n_zero <= max_off:
+        fail(f"{name}: the check could not refuse a kernel that wrote zeros")
+    return max_err
+
+
+def check_a_backward(torch, got, want):
+    """Kernel A' against its plain version, per column group (quad,
+    channels, uv rows): at most MAX_OFF_GAUSSIANS Gaussians beyond atol
+    1e-3 of the group's max |plain| + rtol 1e-3 (kernel A's threshold flips
+    move whole entries, and the atomics sum in a varying order).  The
+    columns the kernel leaves at zero must be zero.  Returns the max abs
+    error."""
+    (d_table, d_uv), (d_table_w, d_uv_w) = got, want
+    groups = {"quad": (d_table[:, :6], d_table_w[:, :6]),
+              "channels": (torch.cat([d_table[:, 7:14], d_table[:, 16:]], 1),
+                           torch.cat([d_table_w[:, 7:14], d_table_w[:, 16:]], 1)),
+              "uv rows": (d_uv[:, :12], d_uv_w[:, :12])}
+    max_err = max(check_scaled(torch, f"A' {name}", g, w, 1e-3, 1e-3,
+                               MAX_OFF_GAUSSIANS, rows=True)
+                  for name, (g, w) in groups.items())
+    if d_table[:, [6, 14, 15]].any() or d_uv[:, 12:].any():
+        fail("kernel A' wrote gradient into a column it must leave at zero")
+    return max_err
+
+
+def restricted_tiles(pairs, keep):
+    """The pair list with the tiles outside `keep` (a bool mask) emptied."""
+    import torch
+
+    return pairs._replace(
+        tile_end=torch.where(keep, pairs.tile_end, pairs.tile_start),
+        tile_counts=torch.where(keep, pairs.tile_counts, 0))
+
+
+def train_phases(torch, model, cams, gt_views):
+    """Phases 7-9 (see the module docstring).  Returns the JSON entries
+    of kernels A', B' and the hash gather."""
+    from texgs_torch.config import Cfg
+    from texgs_torch.core.camera import with_ground_truth
+    from texgs_torch.kernels import tex_term as kt
+    from texgs_torch.kernels import uvtex_fused as kf
+    from texgs_torch.kernels.cubemap import sample_cubemap
+    from texgs_torch.nets import hash_gather as kh
+    from texgs_torch.nets import hashgrid
+    from texgs_torch.train.optim import flatten_tree
+
+    # ------------------------------------------------------------ 7. train
+    train_cams = [with_ground_truth(c, v["image"], v["alpha"], normal=v["norm"])
+                  for c, v in zip(cams, gt_views)]
+    loss_cfg, train_cfg = Cfg(LOSS_CFG), Cfg(TRAIN_CFG)
+    model.spatial_lr_scale = SPATIAL_LR_SCALE
+    model.setup_optim(Cfg(OPTIM_CFG))
+    model.bind_train_cfg(train_cfg, model.bg)
+
+    def step(it):
+        loss, stats, _ = model.compute_loss(it, 10000, train_cams[it % len(cams)],
+                                            None, loss_cfg)
+        model.optimize_step(it, 10000, train_cfg, {})
+        return loss, stats
+
+    t0 = time.perf_counter()
+    seen = {}
+    with recording(kf, "fused_pairs_backward", seen), \
+            recording(kt, "tex_term_backward", seen), \
+            recording(hashgrid, "hash_gather", seen):
+        loss, stats = step(FIRST_ITER)
+    torch.cuda.synchronize()
+    if set(seen) != {"fused_pairs_backward", "tex_term_backward", "hash_gather"}:
+        fail(f"a training step called {sorted(seen)}")
+    log(f"[train] capture step {FIRST_ITER}: loss {loss.item():.5f}, "
+        f"{time.perf_counter() - t0:.2f} s (first step, kernels warm up); "
+        "terms " + ", ".join(f"{k} {v.item():.4f}" for k, v in stats.items()
+                             if k.startswith("L")))
+    want_terms = {"Ll1", "Lssim", "Lalpha", "Lnorm", "Lnorm_smooth",
+                  "Ll1_nosh", "Lssim_nosh", "Linv"}
+    if not want_terms <= set(stats):
+        fail(f"the joint phase misses loss terms {want_terms - set(stats)}")
+
+    counters = {"uvtex_fused": kf.fused_pairs, "tex_term": kt.tex_term,
+                "uvtex_fused_bwd": kf.fused_pairs_backward,
+                "tex_term_bwd": kt.tex_term_backward,
+                "hash_gather": kh.hash_gather}
+    for fn in counters.values():
+        fn.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for it in range(FIRST_ITER + 1, FIRST_ITER + 1 + STEPS):
+        loss, stats = step(it)
+        losses.append(loss.item())
+        if not all(math.isfinite(v.item()) for v in stats.values()):
+            fail(f"step {it}: a loss term is not finite: {stats}")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"[train] {STEPS} steps ({FIRST_ITER + 1}..{FIRST_ITER + STEPS}) in "
+        f"{train_s:.3f} s; launches {launches}; n_pairs of the last step "
+        f"{int(stats['n_pairs'])}")
+    log("  total loss by step: " + ", ".join(f"{v:.5f}" for v in losses))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"  mean loss of the first 5 steps {first:.5f}, of the last 5 "
+        f"{last:.5f} ({(last - first) / first:+.2%})")
+    for name, n in launches.items():
+        if n != STEPS:
+            fail(f"kernel {name} launched {n} times in {STEPS} training steps")
+    sd = model.state_dict()
+    for part in ("params", "net_state"):
+        for name, a in flatten_tree(sd[part]).items():
+            if not np.isfinite(a).all():
+                fail(f"parameter {part}.{name} is not finite after training")
+    if not last < first:
+        fail("the training loss did not fall")
+
+    # --------------------------------------------------- 8. train kernels
+    a_args = seen["fused_pairs_backward"]
+    b_args = seen["tex_term_backward"]
+    k_args = seen["hash_gather"]
+    table, uv_rows, pairs, rays, gx, m = a_args[:6]
+    g_blend, g_t_final, g_mlist = a_args[9:]
+    mlist, texture, g_img, height, width = b_args[:5]
+    log("[train kernels] each against its plain version, on the arguments "
+        f"the step-{FIRST_ITER} backward gave it")
+    n_tiles = pairs.tile_counts.numel()
+    n_chunks = -(-int(pairs.tile_counts.max()) // kf.CHUNK)
+    # the plain backward keeps about 24 (tiles, 256, CHUNK) f32
+    # intermediates per chunk for autograd
+    need = n_chunks * 24 * n_tiles * 256 * kf.CHUNK * 4
+    free = torch.cuda.mem_get_info()[0]
+    keep = torch.ones(n_tiles, dtype=torch.bool, device=table.device)
+    if need > 0.8 * free:
+        keep = torch.arange(n_tiles, device=table.device) % 4 == 0
+    a_sub = (table, uv_rows, restricted_tiles(pairs, keep), rays, gx, m)
+    cots = [torch.where(keep.view(-1, *[1] * (c.dim() - 1)), c, 0.0).contiguous()
+            for c in (g_blend, g_t_final, g_mlist)]
+    log(f"  A' is checked on {int(keep.sum())} of {n_tiles} tiles (plain "
+        f"backward needs about {need / 1e9:.1f} GB, {free / 1e9:.1f} GB free)")
+    with torch.no_grad():
+        fwd_sub = kf.fused_pairs_forward(*a_sub)
+        got_a = kf.fused_pairs_backward(*a_sub, *fwd_sub[:3], *cots)
+        torch.cuda.reset_peak_memory_stats()
+        want_a = kf.mlist_scan_vjp(*a_sub, *cots)
+        torch.cuda.synchronize()
+        log(f"  A' plain backward peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        err_a = check_a_backward(torch, got_a, want_a)
+        del want_a
+
+        got_b = kt.tex_term_backward(*b_args)
+        # the plain VJP takes seconds at this shape: this one call is timed
+        want_b, b_plain_ms = timed_once(
+            torch, lambda: kt.mlist_tex_term_vjp(*b_args))
+        # the loss is a mean over the frame, so these gradients are small:
+        # each output is held at 1e-4 of its own max |plain|
+        live = mlist[..., 0] != 0
+        got_live, want_live = got_b[0][live], want_b[0][live]
+        err_b = max(
+            check_scaled(torch, "B' d texture", got_b[1], want_b[1], 1e-4, 1e-3),
+            check_scaled(torch, "B' d w (live slots)", got_live[:, 0],
+                         want_live[:, 0], 1e-4, 1e-3),
+            check_scaled(torch, "B' d uv (live slots)", got_live[:, 1:],
+                         want_live[:, 1:], 1e-4, 1e-3))
+        if got_b[0][~live][:, 1:].any():
+            fail("kernel B' wrote a uv cotangent into a dead slot")
+        got_k = kh.hash_gather(*k_args)
+        want_k = kh.gather_plain(*k_args)
+        err_k = check_close(torch, "hash gather", got_k, want_k, atol=0.0)
+
+    # -------------------------------------------------- 9. train timings
+    it = [FIRST_ITER + STEPS + 1]
+
+    def timed_step():
+        step(it[0])
+        it[0] += 1
+
+    step_ms = median_ms(torch, timed_step)
+    log(f"[time] training step: {step_ms:.3f} ms (median of {REPS}, compute_"
+        "loss + optimize_step)")
+    fwd = kf.fused_pairs_forward(table, uv_rows, pairs, rays, gx, m)
+    full_a = (table, uv_rows, pairs, rays, gx, m, *fwd[:3], g_blend, g_t_final,
+              g_mlist)
+    with torch.no_grad():
+        a_ms = median_ms(torch, lambda: kf.fused_pairs_backward(*full_a))
+        a_plain_ms = median_ms(torch, lambda: kf.mlist_scan_vjp(*a_sub, *cots),
+                               reps=3)   # median of 3
+        b_ms = median_ms(torch, lambda: kt.tex_term_backward(*b_args))
+        k_ms = median_ms(torch, lambda: kh.hash_gather(*k_args))
+        k_plain_ms = median_ms(torch, lambda: kh.gather_plain(*k_args))
+        k_table, k_idx = k_args
+        level = torch.arange(k_table.shape[0], device=k_table.device
+                             ).repeat_interleave(k_idx.shape[0] // k_table.shape[0])
+        lvl, idx64 = level[:, None], k_idx.long()
+        k_lib_ms = median_ms(torch, lambda: k_table[lvl, idx64])
+
+    n_f = table.shape[1] - 9
+    n_eval = int(fwd[3].sum())
+    n_slots = fwd[2][..., 0].numel()
+    slots = int((fwd[2][..., 0] != 0).sum())
+    # what A' must move: the table, uv rows and pair list, the blend and
+    # T_final with their cotangents, every slot's w (4 B; the slot uv is
+    # not read), the cotangent of the in-list slots only (16 B), and the
+    # two gradients it writes
+    a_bytes = (nbytes(table, uv_rows, pairs.pair_gauss, pairs.tile_start,
+                      pairs.tile_end, *fwd[:2], g_blend, g_t_final,
+                      table, uv_rows)   # the last two: d_table and d_uv
+               + 4 * n_slots + 16 * slots)
+    a_ops = n_eval * (OPS_A_BWD_EVAL + 3 * n_f) + slots * OPS_A_BWD_SLOT
+    a_bound, a_by = bound(a_bytes, a_ops)
+    b_live = int(live.sum())
+    with torch.enable_grad():
+        probe = torch.ones_like(texture, requires_grad=True)
+        sample_cubemap(probe, mlist[live][:, 1:4]).sum().backward()
+    texels = int((probe.grad.abs().sum(-1) > 0).sum())
+    # what B' must move: every slot's w (4 B) and the live slots' uv
+    # (12 B), the image cotangent, the touched texels (12 B each), the
+    # M-list cotangent and the texture gradient each written once
+    b_bytes = (4 * mlist[..., 0].numel() + 12 * b_live + nbytes(g_img)
+               + texels * 12 + nbytes(mlist, texture))
+    b_bound, b_by = bound(b_bytes, b_live * OPS_B_BWD_SLOT)
+    k_bytes = nbytes(*k_args) + nbytes(got_k)
+    k_bound, k_by = bound(k_bytes, 0)
+    sub = "" if bool(keep.all()) else f" on {int(keep.sum())} of {n_tiles} tiles"
+    log(f"[time] kernel A' uvtex_fused_bwd: {a_ms:.4f} ms, plain "
+        f"{a_plain_ms:.3f} ms{sub}, bound {a_bound:.4f} ms ({a_by}: "
+        f"{a_bytes / 1e6:.1f} MB, {a_ops / 1e9:.3f} GFLOP; {n_eval} evaluated "
+        f"pairs, {slots} slots)")
+    log(f"[time] kernel B' tex_term_bwd: {b_ms:.4f} ms, plain "
+        f"{b_plain_ms:.3f} ms (one call), bound {b_bound:.4f} ms ({b_by}: "
+        f"{b_bytes / 1e6:.1f} MB incl. {texels} texels touched, {b_live} "
+        "live slots)")
+    log(f"[time] kernel K5 hash_gather: {k_ms:.4f} ms, plain {k_plain_ms:.4f} "
+        f"ms, library (table[level, idx]) {k_lib_ms:.4f} ms, bound "
+        f"{k_bound:.5f} ms ({k_by}: {k_bytes / 1e6:.2f} MB)")
+    profile_device(torch, "one training step", timed_step, step_ms)
+
+    return [
+        entry("uvtex_fused_bwd", "texgs_torch/csrc/uvtex_fused_bwd.cu",
+              "texgs/kernels/pallas_uvtex_fused.py:324",
+              launches["uvtex_fused_bwd"], a_ms, a_plain_ms, a_bound, a_by,
+              err_a),
+        entry("tex_term_bwd", "texgs_torch/csrc/tex_term_bwd.cu",
+              "texgs/kernels/pallas_textile.py:819", launches["tex_term_bwd"],
+              b_ms, b_plain_ms, b_bound, b_by, err_b),
+        entry("hash_gather", "texgs_torch/csrc/hash_gather.cu",
+              "texgs/nets/pallas_hashgrid.py:63", launches["hash_gather"],
+              k_ms, k_plain_ms, k_bound, k_by, err_k, k_lib_ms),
+    ]
 
 
 def build_model(torch, device):
@@ -464,15 +830,12 @@ def main() -> int:
         b_plain_ms = median_ms(torch, lambda: mlist_tex_term(*b_args))
 
         # bounds from this run's inputs
-        def nbytes(*ts):
-            return sum(t.numel() * t.element_size() for t in ts)
-
         a_bytes = nbytes(table, uv_rows, pairs.pair_gauss, pairs.tile_start,
                          pairs.tile_end, *got_a)
         live_slots = int((mlist[..., 0] != 0).sum())
         a_ops = (int(got_a[3].sum()) * (OPS_A_EVAL + 2 * n_f)
                  + live_slots * OPS_A_SLOT)
-        a_bound = max(a_bytes / H100_BYTES_PER_S, a_ops / H100_F32_FLOPS) * 1e3
+        a_bound, a_by = bound(a_bytes, a_ops)
         # texels kernel B touches: those with a nonzero bilinear weight in
         # some live slot (the gradient of the plain term, unit weights)
         live = mlist[mlist[..., 0] != 0]
@@ -482,7 +845,7 @@ def main() -> int:
         texels = int((probe.grad.abs().sum(-1) > 0).sum())
         b_bytes = nbytes(mlist) + texels * 12 + nbytes(got_b)
         b_ops = live_slots * OPS_B_SLOT
-        b_bound = max(b_bytes / H100_BYTES_PER_S, b_ops / H100_F32_FLOPS) * 1e3
+        b_bound, b_by = bound(b_bytes, b_ops)
     log(f"[time] kernel A uvtex_fused: {a_ms:.4f} ms, plain {a_plain_ms:.3f} ms, "
         f"bound {a_bound:.4f} ms ({a_bytes / 1e6:.1f} MB, "
         f"{a_ops / 1e9:.3f} GFLOP)")
@@ -490,23 +853,19 @@ def main() -> int:
         f"bound {b_bound:.4f} ms ({b_bytes / 1e6:.1f} MB incl. {texels} "
         f"texels touched, {live_slots} live slots)")
 
-    def entry(name, source, replaces, ms, plain_ms, bound, by, err):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound, "bound_by": by, "library_ms": None}
-
     kernels = [
         entry("uvtex_fused", "texgs_torch/csrc/uvtex_fused.cu",
-              "texgs/kernels/pallas_uvtex_fused.py:263", a_ms, a_plain_ms,
-              a_bound, "bytes" if a_bytes / H100_BYTES_PER_S
-              >= a_ops / H100_F32_FLOPS else "operations", err_a),
+              "texgs/kernels/pallas_uvtex_fused.py:263",
+              launches["uvtex_fused"], a_ms, a_plain_ms, a_bound, a_by, err_a),
         entry("tex_term", "texgs_torch/csrc/tex_term.cu",
-              "texgs/kernels/pallas_textile.py:774", b_ms, b_plain_ms,
-              b_bound, "bytes" if b_bytes / H100_BYTES_PER_S
-              >= b_ops / H100_F32_FLOPS else "operations", err_b),
+              "texgs/kernels/pallas_textile.py:774", launches["tex_term"],
+              b_ms, b_plain_ms, b_bound, b_by, err_b),
     ]
-    profile_render(torch, model, cams[0], render_ms)
+    with torch.no_grad():
+        profile_device(torch, "one render of view 0",
+                       lambda: model.render(cams[0]), render_ms)
+
+    kernels += train_phases(torch, model, cams, views)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

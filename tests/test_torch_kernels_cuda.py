@@ -17,6 +17,13 @@ plain version's chunked cumprod, so a pixel whose T lands within an ulp
 of the T = 1e-4 stop may stop one Gaussian apart: at most 4 pixels of a
 frame may differ beyond atol 1e-5 / rtol 1e-4, and no blend channel,
 T_final or slot weight by more than 0.05.
+
+The backward kernels sum each Gaussian's gradient over pixels with
+atomics, in an order that changes from run to run.  A' is compared per
+column group (quad, channels, uv rows) at atol 1e-3 max|plain| + rtol
+1e-3, with at most 4 Gaussians beyond (the stop flips above move whole
+entries); B' at tests/test_textile.py's tolerances (d texture 1e-5 +
+1e-3 |x|, live-slot d M-lists 3e-5 + 1e-3 |x|); the hash gather exactly.
 """
 
 import numpy as np
@@ -27,8 +34,11 @@ from texgs_torch.core.state import init_from_pcd
 from texgs_torch.data.synthetic import (orbit_cameras,
                                         textured_sphere_point_cloud)
 from texgs_torch.kernels import binning, project, tile_raster, uvtex_raster
-from texgs_torch.kernels.tex_term import mlist_tex_term, tex_term
-from texgs_torch.kernels.uvtex_fused import fused_pairs, mlist_scan
+from texgs_torch.kernels.tex_term import (mlist_tex_term, mlist_tex_term_vjp,
+                                          tex_term, tex_term_backward)
+from texgs_torch.kernels.uvtex_fused import (fused_pairs, fused_pairs_backward,
+                                             mlist_scan, mlist_scan_vjp)
+from texgs_torch.nets.hash_gather import gather_plain, hash_gather
 
 
 @pytest.fixture
@@ -200,3 +210,252 @@ def test_tex_term_kernel_matches_plain(cuda_device, mode, edges, res):
     assert tex_term.launches == before + 1
     want = mlist_tex_term(ml, tex, 48, 64, mode)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+def kernel_a_cotangents(outputs, seed=2):
+    """Seeded random cotangents of kernel A's blend, T_final and M-lists,
+    on their device."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.normal(size=tuple(t.shape)),
+                                 dtype=torch.float32, device=t.device)
+                 for t in outputs[:3])
+
+
+def test_fused_backward_runs_plain_version_on_cpu():
+    args = kernel_a_inputs(n=600, width=48, height=32, m=8)
+    outs = mlist_scan(*args)
+    cots = kernel_a_cotangents(outs)
+    before = fused_pairs_backward.launches
+    got = fused_pairs_backward(*args, *outs[:3], *cots)
+    assert fused_pairs_backward.launches == before
+    # autograd's CPU scatter-adds sum in a varying order
+    for a, b in zip(got, mlist_scan_vjp(*args, *cots)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_tex_term_backward_runs_plain_version_on_cpu():
+    ml, tex = random_mlist(9, 8), random_texture(16)
+    g = torch.as_tensor(np.random.default_rng(3).normal(size=(3, 40, 48)),
+                        dtype=torch.float32)
+    before = tex_term_backward.launches
+    got = tex_term_backward(ml, tex, g, 40, 48)
+    assert tex_term_backward.launches == before
+    for a, b in zip(got, mlist_tex_term_vjp(ml, tex, g, 40, 48)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def hash_inputs(levels=8, size=4096, feats=4, n=8192, seed=4):
+    rng = np.random.default_rng(seed)
+    table = torch.as_tensor(rng.uniform(-1, 1, size=(levels, size, feats)),
+                            dtype=torch.float32)
+    idx = torch.as_tensor(rng.integers(0, size, size=(levels * 8, n)),
+                          dtype=torch.int32)
+    return table, idx
+
+
+def test_hash_gather_runs_plain_version_on_cpu():
+    table, idx = hash_inputs(levels=2, size=256, n=100)
+    before = hash_gather.launches
+    got = hash_gather(table, idx)
+    assert hash_gather.launches == before
+    torch.testing.assert_close(got, gather_plain(table, idx), rtol=0, atol=0)
+
+
+def assert_a_backward_close(got, want, max_off=4):
+    """Kernel A' against its plain version: per column group, atol 1e-3
+    of the group's max |plain| + rtol 1e-3, at most max_off Gaussians
+    beyond."""
+    (d_table, d_uv), (d_table_w, d_uv_w) = got, want
+    groups = {"quad": (d_table[:, :6], d_table_w[:, :6]),
+              "channels": (torch.cat([d_table[:, 7:14], d_table[:, 16:]], 1),
+                           torch.cat([d_table_w[:, 7:14], d_table_w[:, 16:]], 1)),
+              "uv rows": (d_uv[:, :12], d_uv_w[:, :12])}
+    for name, (g, w) in groups.items():
+        assert bool(torch.isfinite(g).all()), name
+        tol = 1e-3 * w.abs().max() + 1e-3 * w.abs()
+        off = int(((g - w).abs() > tol).any(-1).sum())
+        assert off <= max_off, f"{name}: {off} Gaussians beyond tolerance"
+    # columns the kernel leaves at zero
+    assert not bool(d_table[:, [6, 14, 15]].any()) and not bool(d_uv[:, 12:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n_extra", [(8, 3), (32, 3), (32, 0)])
+def test_fused_backward_kernel_matches_plain(cuda_device, m, n_extra):
+    args = _to(cuda_device, kernel_a_inputs(m=m, n_extra=n_extra))
+    outs = fused_pairs(*args)
+    cots = kernel_a_cotangents(outs)
+    before = fused_pairs_backward.launches
+    got = fused_pairs_backward(*args, *outs[:3], *cots)
+    torch.cuda.synchronize()
+    assert fused_pairs_backward.launches == before + 1
+    assert_a_backward_close(got, mlist_scan_vjp(*args, *cots))
+
+
+@pytest.mark.cuda
+def test_fused_backward_through_autograd(cuda_device):
+    """fused_pairs' backward launches kernel A' once and agrees with
+    autograd through the plain version."""
+    table, uv_rows, pairs, rays, gx, m = _to(cuda_device, kernel_a_inputs())
+    t = table.clone().requires_grad_(True)
+    u = uv_rows.clone().requires_grad_(True)
+    outs = fused_pairs(t, u, pairs, rays, gx, m)
+    cots = kernel_a_cotangents(outs, seed=7)
+    before = fused_pairs_backward.launches
+    got = torch.autograd.grad(outs[:3], (t, u), cots)
+    assert fused_pairs_backward.launches == before + 1
+    assert_a_backward_close(got, mlist_scan_vjp(table, uv_rows, pairs, rays,
+                                                gx, m, *cots))
+
+
+@pytest.mark.cuda
+def test_fused_backward_kernel_empty_scene(cuda_device):
+    table, uv_rows, pairs, rays, gx, m = _to(cuda_device, kernel_a_inputs())
+    empty = binning.PairList(
+        pairs.pair_gauss[:0], pairs.pair_tile[:0],
+        torch.zeros_like(pairs.tile_start), torch.zeros_like(pairs.tile_end),
+        torch.zeros_like(pairs.tile_counts), pairs.n_pairs * 0,
+        pairs.overflowed)
+    outs = fused_pairs(table, uv_rows, empty, rays, gx, m)
+    d_table, d_uv = fused_pairs_backward(table, uv_rows, empty, rays, gx, m,
+                                         *outs[:3], *kernel_a_cotangents(outs))
+    assert not bool(d_table.any()) and not bool(d_uv.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bilinear", "nearest", "bilinear_clamp"])
+@pytest.mark.parametrize("edges", [False, True], ids=["random", "edges"])
+@pytest.mark.parametrize("res", [8, 64])
+def test_tex_term_backward_kernel_matches_plain(cuda_device, mode, edges, res):
+    ml = random_mlist(12, 16, seed=res, edges=edges).to(cuda_device)
+    tex = random_texture(res).to(cuda_device)
+    g = torch.as_tensor(np.random.default_rng(res + 1).normal(size=(3, 48, 64)),
+                        dtype=torch.float32, device=cuda_device)
+    before = tex_term_backward.launches
+    d_ml, d_tex = tex_term_backward(ml, tex, g, 48, 64, mode)
+    torch.cuda.synchronize()
+    assert tex_term_backward.launches == before + 1
+    d_ml_w, d_tex_w = mlist_tex_term_vjp(ml, tex, g, 48, 64, mode)
+    torch.testing.assert_close(d_tex, d_tex_w, atol=1e-5, rtol=1e-3)
+    live = ml[..., 0] != 0
+    torch.testing.assert_close(d_ml[live], d_ml_w[live], atol=3e-5, rtol=1e-3)
+    assert not bool(d_ml[~live].any())
+
+
+@pytest.mark.cuda
+def test_tex_term_backward_through_autograd(cuda_device):
+    ml = random_mlist(12, 16, seed=3).to(cuda_device).requires_grad_(True)
+    tex = random_texture(64).to(cuda_device).requires_grad_(True)
+    g = torch.as_tensor(np.random.default_rng(9).normal(size=(3, 48, 64)),
+                        dtype=torch.float32, device=cuda_device)
+    before = (tex_term.launches, tex_term_backward.launches)
+    d_ml, d_tex = torch.autograd.grad(tex_term(ml, tex, 48, 64), (ml, tex), g)
+    assert (tex_term.launches, tex_term_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    d_ml_w, d_tex_w = mlist_tex_term_vjp(ml.detach(), tex.detach(), g, 48, 64)
+    torch.testing.assert_close(d_tex, d_tex_w, atol=1e-5, rtol=1e-3)
+    live = ml[..., 0] != 0
+    torch.testing.assert_close(d_ml[live], d_ml_w[live], atol=3e-5, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels,size,n", [(8, 4096, 8192), (2, 256, 1000)])
+def test_hash_gather_kernel_matches_plain(cuda_device, levels, size, n):
+    table, idx = hash_inputs(levels, size, n=n)
+    table, idx = table.to(cuda_device), idx.to(cuda_device)
+    before = hash_gather.launches
+    got = hash_gather(table, idx)
+    torch.cuda.synchronize()
+    assert hash_gather.launches == before + 1
+    torch.testing.assert_close(got, gather_plain(table, idx), rtol=0, atol=0)
+
+
+def _train_model(device, sd=None):
+    """A small stage-3 model with every loss term's inputs: 3,000
+    Gaussians, SH 3, an inverse net with a 2-level hash grid, a 32^2
+    cubemap; from the CPU model's state dict when one is given."""
+    from texgs_torch.config import Cfg
+    from texgs_torch.train.texture_gaussian3d import TextureGaussian3D
+
+    net = {"emb_dim": 16, "pre_mlp_cfg": {"n_hidden_layers": 1, "n_neurons": 16},
+           "mlp_cfg": {"n_hidden_layers": 1, "n_neurons": 16}}
+    inv = dict(net, pre_mlp_cfg={"n_hidden_layers": 1, "n_neurons": 16,
+                                 "hash_grid_cfg": {"n_levels": 2,
+                                                   "n_features_per_level": 4,
+                                                   "max_hashmap": 10}})
+    cfg = Cfg({"uv_net_cfg": net, "inv_uv_net_cfg": inv,
+               "max_inverse_points": 10 ** 6, "geo_emb_dim": 16,
+               "tex_cfg": {"resolution": 32, "max_sh_degree": 3}})
+    optim_cfg = Cfg({"uv_net_lr": 1e-4, "inv_uv_net_lr": 1e-4,
+                     "uv_net_milestones": [], "uv_net_gamma": 0.5,
+                     "tex_lr": 0.0025, "gaussian_optim_range": [0, None],
+                     "position_lr_init": 1e-4, "position_lr_final": 1e-6,
+                     "position_lr_delay_mult": 0.01,
+                     "position_lr_max_steps": 7500, "opacity_lr": 0.05,
+                     "scaling_lr": 0.005, "rotation_lr": 0.001})
+    model = TextureGaussian3D(cfg, device=device)
+    if sd is None:
+        pcd = textured_sphere_point_cloud(3000, seed=0)
+        st = init_from_pcd(pcd.points, pcd.colors, 3, device=device)
+        rng = np.random.default_rng(0)
+        model.gauss = dict(
+            xyz=st.xyz, scaling=st.scaling, rotation=st.rotation,
+            opacity=torch.as_tensor(rng.uniform(-1, 3, size=(3000, 1)),
+                                    dtype=torch.float32, device=device),
+            shs=torch.as_tensor(0.05 * rng.normal(size=(3000, 15, 3)),
+                                dtype=torch.float32, device=device))
+        model.texture = random_texture(32).to(device)
+        model.active_sh_degree = 2
+        model.spatial_lr_scale = 1.0
+        model.setup_optim(optim_cfg)
+    else:
+        model.load_state_dict(sd, optim_cfg)
+    model.bind_train_cfg(Cfg({}), [0.1, 0.2, 0.3])
+    return model
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One stage-3 training step with every prod loss term: the card's
+    kernels (A, A', B, B', the hash gather, once each) against the CPU's
+    plain versions, from the same state.  The loss at rtol 1e-4; every
+    leaf's gradient, read from the Adam moments of the first step (mu =
+    0.1 g), at atol 2e-3 of its max |grad|, as the CPU tests hold the port
+    to texgs.  (Adam's first step moves an element by +-lr whatever its
+    gradient's size, so the parameters themselves part wherever a gradient
+    near 0 rounds to the other sign.)"""
+    from texgs_torch.config import Cfg
+    from texgs_torch.core.camera import with_ground_truth
+    from texgs_torch.kernels import tex_term as kt
+    from texgs_torch.kernels import uvtex_fused as kf
+    from texgs_torch.nets import hash_gather as kh
+    from texgs_torch.train.optim import flatten_tree
+
+    cpu = _train_model("cpu")
+    card = _train_model(cuda_device, cpu.state_dict())
+    cam = orbit_cameras(1, radius=3.5, width=80, height=64)[0]
+    out = cpu.render(cam)
+    # ground truth off the render, so no L1 term sits at its kink
+    cam = with_ground_truth(cam, (out["render"] + 0.05).clamp(0, 1),
+                            0.8 * out["alpha"] + 0.1,
+                            normal=torch.roll(out["norm"], 1, dims=0))
+    loss_cfg = Cfg({"lambda_dssim": 0.2, "lambda_alpha": 1.0,
+                    "lambda_norm": 0.1, "lambda_norm_smooth": 0.5,
+                    "lambda_no_sh": 2.0, "lambda_inverse": 0.1})
+    counters = (kf.fused_pairs, kf.fused_pairs_backward, kt.tex_term,
+                kt.tex_term_backward, kh.hash_gather)
+    before = [fn.launches for fn in counters]
+    loss_card = card.compute_loss(1, 10, cam, None, loss_cfg)[0].item()
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1] * 5
+    loss_cpu = cpu.compute_loss(1, 10, cam, None, loss_cfg)[0].item()
+    np.testing.assert_allclose(loss_card, loss_cpu, rtol=1e-4)
+    want = flatten_tree(cpu.state_dict()["optim_state"])
+    got = flatten_tree(card.state_dict()["optim_state"])
+    assert set(got) == set(want)
+    for k in (k for k in want if ".mu." in f".{k}."):
+        a, b = np.asarray(want[k]) / 0.1, np.asarray(got[k]) / 0.1
+        assert np.isfinite(b).all(), k
+        denom = np.abs(a).max() + 1e-8
+        np.testing.assert_allclose(b / denom, a / denom, atol=2e-3,
+                                   err_msg=f"grad mismatch: {k}")

@@ -7,8 +7,9 @@ use with
          -Xcompiler -fPIC -Xptxas=-v
 
 into ``build/texgs_torch/lib<name>-<hash>.so`` at the repository root, then
-loaded with ctypes.  The hash covers the source and the flags, so a changed
-source is rebuilt.  ``-Xptxas=-v`` changes no generated code: it only
+loaded with ctypes.  The hash covers the source, every header of csrc/ it
+includes (``#include "<header>"``, followed through headers) and the flags,
+so a changed source or shared header is rebuilt.  ``-Xptxas=-v`` changes no generated code: it only
 makes ptxas report each kernel's registers, shared memory and spills, which
 ``build`` returns and keeps beside the library as ``<library>.log``.
 """
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,7 +28,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "texgs_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNEL_SOURCES = ("uvtex_fused", "tex_term")
+KERNEL_SOURCES = ("uvtex_fused", "uvtex_fused_bwd", "tex_term", "tex_term_bwd",
+                  "hash_gather")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -39,11 +43,25 @@ def _nvcc() -> str:
     return path
 
 
+def sources_of(name: str) -> list[Path]:
+    """csrc/<name>.cu and the csrc headers it includes, directly or through
+    another header, in the order first met."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [CSRC / h for h in _INCLUDE.findall(path.read_text())
+                 if (CSRC / h).exists()]
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=KERNEL_SOURCES) -> dict[str, str]:
@@ -83,6 +101,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def function(name: str, fn_name: str, argtypes):
+    """The C function ``fn_name`` of csrc/<name>.cu's library, its argument
+    types declared (``ctypes.c_void_p`` for pointers, so none is cut to 32
+    bits) and its result an int, the launch's cudaError_t."""
+    fn = getattr(load(name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def ptr(t) -> ctypes.c_void_p:

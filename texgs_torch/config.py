@@ -68,3 +68,13 @@ def load_config(path: str | os.PathLike) -> Cfg:
     with open(path, "r") as f:
         raw = yaml.safe_load(f)
     return Cfg(raw or {})
+
+
+def in_range(iteration: int, iter_range: Any) -> bool:
+    """Iteration gating with open ``None`` bounds; the interval is
+    (start, end].  An absent or empty range means "always on"."""
+    if not iter_range or len(iter_range) != 2:
+        return True
+    start = 0 if iter_range[0] is None else iter_range[0]
+    end = int(1e7) if iter_range[1] is None else iter_range[1]
+    return start < iteration <= end

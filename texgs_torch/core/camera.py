@@ -4,12 +4,18 @@ Matrix convention is row-vector/transposed, identical to texgs:
 ``world_view`` = getWorld2View2(...)^T, ``full_proj`` = world_view @ proj^T,
 ``camera_center`` = inv(world_view)[3, :3].  The matrices stay host-side
 numpy (float32); renderers move what they need to their device.
+
+A training view also carries its ground truth, as texgs's Camera does:
+``image`` (3, H, W) premultiplied by ``alpha_mask`` (1, H, W), and
+optionally ``normal`` (3, H, W) and ``depth`` (1, H, W), as numpy arrays or
+tensors (``with_ground_truth``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any, Optional
 
 import numpy as np
 
@@ -32,6 +38,10 @@ class Camera:
     zfar: float = ZFAR
     uid: int = 0
     image_name: str = ""
+    image: Optional[Any] = None       # (3, H, W) f32 rgb, premultiplied
+    alpha_mask: Optional[Any] = None  # (1, H, W) f32
+    normal: Optional[Any] = None      # (3, H, W) f32 in [-1, 1]
+    depth: Optional[Any] = None       # (1, H, W) f32 view-space z
 
     @property
     def tanfovx(self) -> float:
@@ -58,6 +68,33 @@ def make_camera(R: np.ndarray, T: np.ndarray, fovx: float, fovy: float,
                   fovx=float(fovx), fovy=float(fovy),
                   znear=float(znear), zfar=float(zfar),
                   uid=int(uid), image_name=image_name)
+
+
+def with_ground_truth(camera: Camera, image, alpha_mask=None, normal=None,
+                      depth=None) -> Camera:
+    """``camera`` with its ground truth attached.  ``image`` (3, H, W) is
+    clipped to [0, 1] and premultiplied by ``alpha_mask`` (1, H, W) when one
+    is given, as texgs's ``make_camera`` does.  Tensors stay tensors (on
+    their device); anything else becomes a float32 numpy array."""
+    def as_array(a):
+        if a is None:
+            return None
+        if hasattr(a, "detach"):
+            return a.detach().float()
+        return np.asarray(a, np.float32)
+
+    image, alpha_mask = as_array(image), as_array(alpha_mask)
+    normal, depth = as_array(normal), as_array(depth)
+    for name, a, c in (("image", image, 3), ("alpha_mask", alpha_mask, 1),
+                       ("normal", normal, 3), ("depth", depth, 1)):
+        if a is not None and tuple(a.shape) != (c, camera.height, camera.width):
+            raise ValueError(f"{name} must be ({c}, {camera.height}, "
+                             f"{camera.width}), got {tuple(a.shape)}")
+    image = image.clip(0.0, 1.0)
+    if alpha_mask is not None:
+        image = image * alpha_mask
+    return dataclasses.replace(camera, image=image, alpha_mask=alpha_mask,
+                               normal=normal, depth=depth)
 
 
 def look_at_camera(eye: np.ndarray, target: np.ndarray, up: np.ndarray,

@@ -27,127 +27,56 @@
 
 #include <cuda_runtime.h>
 
+#include "cubemap_taps.cuh"
+
 namespace {
+
+using namespace texgs;
 
 constexpr int TILE = 16;
 constexpr int PIX = TILE * TILE;
-constexpr float C0 = 0.28209479177387814f;
-enum FilterMode { BILINEAR = 0, BILINEAR_CLAMP = 1, NEAREST = 2 };
-
-// cubemap.direction_to_face_uv
-__device__ __forceinline__ void dir_to_face_uv(float x, float y, float z,
-                                               int& face, float& u,
-                                               float& v) {
-  const float ax = fabsf(x), ay = fabsf(y), az = fabsf(z);
-  const bool is_x = (ax >= ay) && (ax >= az);
-  const bool is_y = !is_x && (ay >= az);
-  const float ma = fmaxf(is_x ? ax : (is_y ? ay : az), 1e-12f);
-  if (is_x) {
-    face = x >= 0.f ? 0 : 1;
-    u = x >= 0.f ? -z : z;
-    v = -y;
-  } else if (is_y) {
-    face = y >= 0.f ? 2 : 3;
-    u = x;
-    v = y >= 0.f ? z : -z;
-  } else {
-    face = z >= 0.f ? 4 : 5;
-    u = z >= 0.f ? x : -x;
-    v = -y;
-  }
-  u = __fdiv_rn(u, ma);
-  v = __fdiv_rn(v, ma);
-}
-
-// cubemap.face_uv_to_direction (unnormalized)
-__device__ __forceinline__ void face_uv_to_dir(int face, float u, float v,
-                                               float& x, float& y, float& z) {
-  switch (face) {
-    case 0: x = 1.f; y = -v; z = -u; break;
-    case 1: x = -1.f; y = -v; z = u; break;
-    case 2: x = u; y = 1.f; z = v; break;
-    case 3: x = u; y = -1.f; z = -v; break;
-    case 4: x = u; y = -v; z = 1.f; break;
-    default: x = -u; y = -v; z = -1.f; break;
-  }
-}
-
-// (c * 0.5 + 0.5) * res truncated toward zero, clamped to [0, res)
-__device__ __forceinline__ int texel_index(float c, int res) {
-  const float t = __fmul_rn(__fadd_rn(__fmul_rn(c, 0.5f), 0.5f),
-                            static_cast<float>(res));
-  return min(max(static_cast<int>(t), 0), res - 1);
-}
 
 __device__ __forceinline__ float3 texel(const float* __restrict__ tex,
-                                        int res, int face, int yi, int xi) {
-  const float* p =
-      tex + ((static_cast<size_t>(face) * res + yi) * res + xi) * 3;
+                                        int at) {
+  const float* p = tex + static_cast<size_t>(at) * 3;
   return make_float3(__ldg(p), __ldg(p + 1), __ldg(p + 2));
 }
 
-__device__ __forceinline__ float3 reresolve(const float* __restrict__ tex,
-                                            int res, int face, float u_t,
-                                            float v_t) {
-  float x, y, z, u2, v2;
-  int f2;
-  face_uv_to_dir(face, u_t, v_t, x, y, z);
-  dir_to_face_uv(x, y, z, f2, u2, v2);
-  return texel(tex, res, f2, texel_index(v2, res), texel_index(u2, res));
-}
-
-// One bilinear tap at texel (xi, yi) of `face` (cubemap.sample_cubemap's
-// tap()): in-face taps read the texel; seamless edge taps re-resolve onto
-// the adjacent face; corner taps average the 3 texels of the corner.
+// One bilinear tap: its texel, or the average of a cube corner's three.
 __device__ __forceinline__ float3 cube_tap(const float* __restrict__ tex,
                                            int res, float lim, bool seamless,
                                            int face, float xi, float yi) {
-  const int xc = min(max(static_cast<int>(xi), 0), res - 1);
-  const int yc = min(max(static_cast<int>(yi), 0), res - 1);
-  const float3 r = texel(tex, res, face, yc, xc);
-  if (!seamless) return r;
-  const float fres = static_cast<float>(res);
-  const float u_t =
-      __fadd_rn(__fmul_rn(__fdiv_rn(__fadd_rn(xi, 0.5f), fres), 2.f), -1.f);
-  const float v_t =
-      __fadd_rn(__fmul_rn(__fdiv_rn(__fadd_rn(yi, 0.5f), fres), 2.f), -1.f);
-  const bool out_u = fabsf(u_t) > 1.f, out_v = fabsf(v_t) > 1.f;
-  if (!out_u && !out_v) return r;
-  const float uc = fminf(fmaxf(u_t, -lim), lim);
-  const float vc = fminf(fmaxf(v_t, -lim), lim);
-  if (out_u && out_v) {
-    const float3 p = reresolve(tex, res, face, u_t, vc);
-    const float3 q = reresolve(tex, res, face, uc, v_t);
-    return make_float3(__fdiv_rn(p.x + q.x + r.x, 3.f),
-                       __fdiv_rn(p.y + q.y + r.y, 3.f),
-                       __fdiv_rn(p.z + q.z + r.z, 3.f));
-  }
-  return out_u ? reresolve(tex, res, face, u_t, vc)
-               : reresolve(tex, res, face, uc, v_t);
+  int idx[3];
+  if (tap_texels(res, lim, seamless, face, xi, yi, idx) == 1)
+    return texel(tex, idx[0]);
+  const float3 p = texel(tex, idx[0]), q = texel(tex, idx[1]),
+               r = texel(tex, idx[2]);
+  return make_float3(__fdiv_rn(p.x + q.x + r.x, 3.f),
+                     __fdiv_rn(p.y + q.y + r.y, 3.f),
+                     __fdiv_rn(p.z + q.z + r.z, 3.f));
 }
 
 // cubemap.sample_cubemap for one direction
 __device__ __forceinline__ float3 sample_cube(const float* __restrict__ tex,
                                               int res, float lim, int mode,
                                               float dx, float dy, float dz) {
-  int face;
-  float u, v;
-  dir_to_face_uv(dx, dy, dz, face, u, v);
-  if (mode == NEAREST)
-    return texel(tex, res, face, texel_index(v, res), texel_index(u, res));
-  const float fres = static_cast<float>(res);
-  const float fu =
-      __fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(u, 0.5f), 0.5f), fres), -0.5f);
-  const float fv =
-      __fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(v, 0.5f), 0.5f), fres), -0.5f);
-  const float x0 = floorf(fu), y0 = floorf(fv);
-  const float wx = fu - x0, wy = fv - y0;
+  if (mode == NEAREST) {
+    int face;
+    float u, v;
+    dir_to_face_uv(dx, dy, dz, face, u, v);
+    return texel(tex, texel_at(res, face, texel_index(v, res),
+                               texel_index(u, res)));
+  }
+  const Footprint fp = footprint(res, dx, dy, dz);
   const bool seamless = mode == BILINEAR;
-  const float3 t00 = cube_tap(tex, res, lim, seamless, face, x0, y0);
-  const float3 t10 = cube_tap(tex, res, lim, seamless, face, x0 + 1.f, y0);
-  const float3 t01 = cube_tap(tex, res, lim, seamless, face, x0, y0 + 1.f);
+  const float3 t00 = cube_tap(tex, res, lim, seamless, fp.face, fp.x0, fp.y0);
+  const float3 t10 =
+      cube_tap(tex, res, lim, seamless, fp.face, fp.x0 + 1.f, fp.y0);
+  const float3 t01 =
+      cube_tap(tex, res, lim, seamless, fp.face, fp.x0, fp.y0 + 1.f);
   const float3 t11 =
-      cube_tap(tex, res, lim, seamless, face, x0 + 1.f, y0 + 1.f);
+      cube_tap(tex, res, lim, seamless, fp.face, fp.x0 + 1.f, fp.y0 + 1.f);
+  const float wx = fp.wx, wy = fp.wy;
   const float ax = 1.f - wx, ay = 1.f - wy;
   const float3 top = make_float3(t00.x * ax + t10.x * wx,
                                  t00.y * ax + t10.y * wx,

@@ -1,0 +1,140 @@
+// Device code shared by kernel A (uvtex_fused.cu) and its backward A'
+// (uvtex_fused_bwd.cu): constants, the staging of one pair's record and the
+// per-pixel alpha.  The backward replays the forward's alpha, T and stop
+// decisions, so both must round every operation of that chain the same
+// way: one definition here keeps them from drifting apart.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace texgs {
+
+constexpr int TILE = 16;
+constexpr int PIX = TILE * TILE;
+constexpr float ALPHA_CLAMP = 0.99f;
+constexpr float MIN_ALPHA = 1.0f / 255.0f;
+constexpr float T_STOP = 1e-4f;
+constexpr float T_STAR_MAX = 1e4f;
+// columns of tile_raster.build_gauss_table
+constexpr int COL_LOGOP = 6;
+constexpr int COL_F0 = 7;
+constexpr int COL_ANCHOR = 14;
+constexpr int TABLE_FIXED = 16;
+constexpr int N_FIXED_F = 7;
+// columns of uvtex_raster.build_uv_rows: sv(3) siginv(6) base_uv(3) J(9) pad
+constexpr int UV_COLS = 24;
+constexpr int UV_USED = 21;
+
+// The exponent and its tile shift are rounded once per operation, in the
+// order of the plain version's tensor expressions (tile_raster.shift_to_tile
+// and tile_power), so the compiler cannot contract them into FMAs: kernel,
+// backward and plain version then make the same alpha = 1/255 and
+// power > 0 decisions.
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+
+struct Rays {
+  float ax[3], by[3], c0[3];  // d(px, py) = c0 + px * ax + py * by
+};
+
+__device__ __forceinline__ void pixel_ray(const Rays& rays, float px, float py,
+                                          float d[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    d[i] = rays.c0[i] + px * rays.ax[i] + py * rays.by[i];
+}
+
+// Column of the table that holds blend channel f.
+__device__ __forceinline__ int feature_col(int f) {
+  return f < N_FIXED_F ? COL_F0 + f : TABLE_FIXED + f - N_FIXED_F;
+}
+
+// Stage one pair's record: the Gaussian's exponent quadratic shifted from
+// its anchor tile into the tile at (tile_x, tile_y) (tile_raster.
+// shift_to_tile), its log-opacity, its NF blend channels and its uv row.
+// q receives [qxx, qyy, qxy, qx, qy, qc, logop].
+template <int NF>
+__device__ __forceinline__ void stage_record(const float* __restrict__ row,
+                                             const float* __restrict__ uv,
+                                             float tile_x, float tile_y,
+                                             float* q, float* feat,
+                                             float* uv_out) {
+  const float dtx = tile_x - row[COL_ANCHOR];
+  const float dty = tile_y - row[COL_ANCHOR + 1];
+  const float qxx = row[0], qyy = row[1], qxy = row[2];
+  const float qx_a = row[3], qy_a = row[4], qc_a = row[5];
+  q[0] = qxx;
+  q[1] = qyy;
+  q[2] = qxy;
+  q[3] = add(add(qx_a, mul(mul(2.f, qxx), dtx)), mul(qxy, dty));
+  q[4] = add(add(qy_a, mul(mul(2.f, qyy), dty)), mul(qxy, dtx));
+  q[5] = add(add(add(add(add(qc_a, mul(mul(qxx, dtx), dtx)),
+                             mul(mul(qyy, dty), dty)),
+                         mul(mul(qxy, dtx), dty)),
+                     mul(qx_a, dtx)),
+                 mul(qy_a, dty));
+  q[6] = row[COL_LOGOP];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) feat[f] = row[feature_col(f)];
+#pragma unroll
+  for (int k = 0; k < UV_USED; ++k) uv_out[k] = uv[k];
+}
+
+// The exponent at tile-local pixel (x, y) (tile_raster.tile_power).
+__device__ __forceinline__ float pixel_power(float x, float y, const float* q) {
+  return add(add(add(add(add(mul(x * x, q[0]), mul(y * y, q[1])),
+                         mul(x * y, q[2])),
+                     mul(x, q[3])),
+                 mul(y, q[4])),
+             q[5]);
+}
+
+// alpha = min(0.99, exp(power)), zeroed where power - logop > 0 or
+// alpha < 1/255 (tile_raster.chunk_weights).  *e receives exp(power).
+__device__ __forceinline__ float pixel_alpha(float power, float logop,
+                                             float* e) {
+  *e = expf(power);
+  float alpha = fminf(*e, ALPHA_CLAMP);
+  if (power - logop > 0.f) alpha = 0.f;
+  if (alpha < MIN_ALPHA) alpha = 0.f;
+  return alpha;
+}
+
+// uvtex_raster.intersect_uv for one ray and one Gaussian's uv row r, with
+// the intermediates the backward needs.
+struct Intersection {
+  float uvn[3];    // the unit uv the M-list stores
+  float jd[3];     // J d
+  float t_raw;     // num / den before the clamp to [0, T_STAR_MAX]
+  float den;       // den after the |den| < 1e-20 guard
+  bool den_small;  // the guard replaced den
+  float norm;      // |uv| before the normalisation
+};
+
+__device__ __forceinline__ Intersection intersect(const float d[3],
+                                                  const float* r) {
+  Intersection it;
+  const float dx = d[0], dy = d[1], dz = d[2];
+  const float num = dx * r[0] + dy * r[1] + dz * r[2];
+  float den = dx * dx * r[3] + 2.f * dx * dy * r[4] + 2.f * dx * dz * r[5] +
+              dy * dy * r[6] + 2.f * dy * dz * r[7] + dz * dz * r[8];
+  it.den_small = fabsf(den) < 1e-20f;
+  if (it.den_small) den = 1e-20f;
+  it.den = den;
+  it.t_raw = num / den;
+  const float t = fminf(fmaxf(it.t_raw, 0.f), T_STAR_MAX);
+  float u[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    it.jd[i] = dx * r[12 + 3 * i] + dy * r[13 + 3 * i] + dz * r[14 + 3 * i];
+    u[i] = r[9 + i] + t * it.jd[i];
+  }
+  it.norm = sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2]);
+  const float s = it.norm + 1e-12f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) it.uvn[i] = u[i] / s;
+  return it;
+}
+
+}  // namespace texgs

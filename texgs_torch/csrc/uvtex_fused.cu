@@ -43,55 +43,13 @@
 
 #include <cstring>
 
+#include "uvtex_common.cuh"
+
 namespace {
 
-constexpr int TILE = 16;
-constexpr int PIX = TILE * TILE;
+using namespace texgs;
+
 constexpr int BATCH = PIX;  // one staged record per thread
-constexpr float ALPHA_CLAMP = 0.99f;
-constexpr float MIN_ALPHA = 1.0f / 255.0f;
-constexpr float T_STOP = 1e-4f;
-constexpr float T_STAR_MAX = 1e4f;
-// columns of tile_raster.build_gauss_table
-constexpr int COL_LOGOP = 6;
-constexpr int COL_F0 = 7;
-constexpr int COL_ANCHOR = 14;
-constexpr int TABLE_FIXED = 16;
-constexpr int N_FIXED_F = 7;
-// columns of uvtex_raster.build_uv_rows: sv(3) siginv(6) base_uv(3) J(9) pad
-constexpr int UV_COLS = 24;
-constexpr int UV_USED = 21;
-
-// The exponent and its tile shift are rounded once per operation, in the
-// order of the plain version's tensor expressions (tile_raster.shift_to_tile
-// and tile_power), so the compiler cannot contract them into FMAs: both
-// versions then make the same alpha = 1/255 and power > 0 decisions.
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-
-struct Rays {
-  float ax[3], by[3], c0[3];  // d(px, py) = c0 + px * ax + py * by
-};
-
-// uvtex_raster.intersect_uv for one ray and one Gaussian's uv row r.
-__device__ __forceinline__ float3 intersect_uv(const float d[3],
-                                               const float* r) {
-  const float dx = d[0], dy = d[1], dz = d[2];
-  const float num = dx * r[0] + dy * r[1] + dz * r[2];
-  float den = dx * dx * r[3] + 2.f * dx * dy * r[4] + 2.f * dx * dz * r[5] +
-              dy * dy * r[6] + 2.f * dy * dz * r[7] + dz * dz * r[8];
-  if (fabsf(den) < 1e-20f) den = 1e-20f;
-  const float t = fminf(fmaxf(num / den, 0.f), T_STAR_MAX);
-  float u[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float jd = dx * r[12 + 3 * i] + dy * r[13 + 3 * i] +
-                     dz * r[14 + 3 * i];
-    u[i] = r[9 + i] + t * jd;
-  }
-  const float nrm = sqrtf(u[0] * u[0] + u[1] * u[1] + u[2] * u[2]) + 1e-12f;
-  return make_float3(u[0] / nrm, u[1] / nrm, u[2] / nrm);
-}
 
 template <int NF>
 __global__ void __launch_bounds__(PIX)
@@ -114,9 +72,7 @@ __global__ void __launch_bounds__(PIX)
   const float y = static_cast<float>(tid / TILE);
   const float px = tile_x + x, py = tile_y + y;
   float d[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    d[i] = rays.c0[i] + px * rays.ax[i] + py * rays.by[i];
+  pixel_ray(rays, px, py, d);
 
   const int start = tile_start[tile], end = tile_end[tile];
   const size_t pix = static_cast<size_t>(tile) * PIX + tid;
@@ -135,46 +91,17 @@ __global__ void __launch_bounds__(PIX)
     const int j = base + tid;
     if (j < end) {
       const int g = pair_gauss[j];
-      const float* row = table + static_cast<size_t>(g) * tab_cols;
-      // tile_raster.shift_to_tile: anchor frame -> this tile's frame
-      const float dtx = tile_x - row[COL_ANCHOR];
-      const float dty = tile_y - row[COL_ANCHOR + 1];
-      const float qxx = row[0], qyy = row[1], qxy = row[2];
-      const float qx_a = row[3], qy_a = row[4], qc_a = row[5];
-      float* q = s_quad[tid];
-      q[0] = qxx;
-      q[1] = qyy;
-      q[2] = qxy;
-      q[3] = add(add(qx_a, mul(mul(2.f, qxx), dtx)), mul(qxy, dty));
-      q[4] = add(add(qy_a, mul(mul(2.f, qyy), dty)), mul(qxy, dtx));
-      q[5] = add(add(add(add(add(qc_a, mul(mul(qxx, dtx), dtx)),
-                                 mul(mul(qyy, dty), dty)),
-                             mul(mul(qxy, dtx), dty)),
-                         mul(qx_a, dtx)),
-                     mul(qy_a, dty));
-      q[6] = row[COL_LOGOP];
-#pragma unroll
-      for (int f = 0; f < NF; ++f)
-        s_feat[tid][f] =
-            row[f < N_FIXED_F ? COL_F0 + f : TABLE_FIXED + f - N_FIXED_F];
-      const float* uv = uv_rows + static_cast<size_t>(g) * UV_COLS;
-#pragma unroll
-      for (int k = 0; k < UV_USED; ++k) s_uv[tid][k] = uv[k];
+      stage_record<NF>(table + static_cast<size_t>(g) * tab_cols,
+                       uv_rows + static_cast<size_t>(g) * UV_COLS, tile_x,
+                       tile_y, s_quad[tid], s_feat[tid], s_uv[tid]);
     }
     __syncthreads();
 
     const int n_batch = min(BATCH, end - base);
     for (int k = 0; k < n_batch && !done; ++k) {
       const float* q = s_quad[k];
-      const float power =
-          add(add(add(add(add(mul(x * x, q[0]), mul(y * y, q[1])),
-                          mul(x * y, q[2])),
-                      mul(x, q[3])),
-                  mul(y, q[4])),
-              q[5]);
-      float alpha = fminf(expf(power), ALPHA_CLAMP);
-      if (power - q[6] > 0.f) alpha = 0.f;
-      if (alpha < MIN_ALPHA) alpha = 0.f;
+      float e;
+      const float alpha = pixel_alpha(pixel_power(x, y, q), q[6], &e);
       ++evals;
       const float t_next = T * (1.f - alpha);
       if (t_next < T_STOP) {
@@ -187,8 +114,8 @@ __global__ void __launch_bounds__(PIX)
       T = t_next;
       if (w > 0.f) {
         if (count < m) {
-          const float3 uv = intersect_uv(d, s_uv[k]);
-          list[count] = make_float4(w, uv.x, uv.y, uv.z);
+          const Intersection it = intersect(d, s_uv[k]);
+          list[count] = make_float4(w, it.uvn[0], it.uvn[1], it.uvn[2]);
         }
         ++count;
       }

@@ -1,0 +1,333 @@
+// Kernel A': the backward of kernel A (blend channels + M-lists of the
+// stage-3 render).
+//
+// Replaces the TPU kernel texgs/kernels/pallas_uvtex_fused.py:117
+// (_fused_bwd_kernel, launched by fused_pairs' VJP at :324 / :366).  Plain
+// PyTorch version: texgs_torch/kernels/uvtex_fused.py, mlist_scan_vjp
+// (autograd through mlist_scan).
+//
+// What it computes.  The vector-Jacobian product of kernel A's outputs
+// (blend channels, T_final, M-list slots [w, uv]) into the per-Gaussian
+// table (N, 16 + E) and uv rows (N, 24).  Per (pixel, pair) entry j with
+// weight w_j = alpha_j T_j, the cotangents of the blend, of T_final and of
+// the M-list w add into one per-entry g_j, and texgs's suffix form gives
+//   d alpha_j = T_j g_j - (sum_{i>j} w_i g_i + T_final g_T) / (1 - alpha_j),
+// with sum_{i>j} w_i g_i = tot - prefix_j, tot = sum_F out g_out +
+// sum_slots w g_w.  The uv cotangent of an in-list entry runs back through
+// the normalisation, t* (active for 0 <= t* <= 1e4, as torch.clamp's
+// gradient is) and J d into sv, siginv and base_uv.  J is a constant of the
+// render (the table's J columns get no gradient, as in texgs's kernel).
+//
+// Design.  One thread block per 16x16 tile, one thread per pixel, as kernel
+// A.  The block replays the tile's pairs in depth order with kernel A's own
+// alpha, T and stop arithmetic (uvtex_common.cuh), so a pixel stops at the
+// same pair as in the forward.  All threads walk the pairs in step; a
+// pixel that has stopped contributes zeros.  Each pair's gradient is a sum
+// over the tile's 256 pixels: warp shuffles reduce it to 8 partials, which
+// go to shared memory; every GROUP pairs the block adds the partials and
+// issues one atomicAdd per pair and nonzero column into the per-Gaussian
+// outputs.  The kernel reads the table by Gaussian index and shifts the
+// quadratic into the tile's frame itself, so it applies the transpose of
+// that shift before the atomics; the log-opacity column (used only by the
+// power > 0 skip) and the anchor columns (a floor) get no gradient.
+//
+// Bound on Hopper: bytes.  Per pixel it reads the M-list and its cotangent
+// (2 m 16 bytes), the blend channels and theirs; per pair the table and uv
+// rows.  The block reduction costs about 5 shuffles per value per warp
+// and pair; it is what a later PR would make cheaper.
+
+#include <cuda_runtime.h>
+
+#include <cstring>
+
+#include "uvtex_common.cuh"
+
+namespace {
+
+using namespace texgs;
+
+constexpr int BATCH = 128;  // pair records staged per pass
+constexpr int GROUP = 8;    // pairs whose partial sums wait in shared memory
+constexpr int WARPS = PIX / 32;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int UV_GRAD = 12;  // sv(3), siginv(6), base_uv(3)
+
+template <int NF>
+struct Cols {
+  static constexpr int QUAD = 0;         // 6 tile-frame coefficients
+  static constexpr int FEAT = 6;         // NF blend channels
+  static constexpr int UV = 6 + NF;      // 12 uv-row entries
+  static constexpr int N = 6 + NF + UV_GRAD;
+};
+
+template <int NF>
+__global__ void __launch_bounds__(PIX)
+    fused_backward(const float* __restrict__ table, int tab_cols,
+                   const float* __restrict__ uv_rows,
+                   const int* __restrict__ pair_gauss,
+                   const int* __restrict__ tile_start,
+                   const int* __restrict__ tile_end, Rays rays, int gx, int m,
+                   const float* __restrict__ blend,
+                   const float* __restrict__ t_final,
+                   const float4* __restrict__ mlist,
+                   const float* __restrict__ g_blend,
+                   const float* __restrict__ g_t_final,
+                   const float4* __restrict__ g_mlist,
+                   float* __restrict__ d_table, float* __restrict__ d_uv) {
+  using C = Cols<NF>;
+  __shared__ float s_quad[BATCH][8];
+  __shared__ float s_feat[BATCH][NF];
+  __shared__ float s_uv[BATCH][UV_USED];
+  __shared__ int s_gauss[BATCH];
+  __shared__ float s_shift[BATCH][2];
+  __shared__ float s_red[GROUP][WARPS][C::N];
+
+  const int tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const float tile_x = static_cast<float>((tile % gx) * TILE);
+  const float tile_y = static_cast<float>((tile / gx) * TILE);
+  const float x = static_cast<float>(tid % TILE);
+  const float y = static_cast<float>(tid / TILE);
+  float d[3];
+  pixel_ray(rays, tile_x + x, tile_y + y, d);
+
+  const int start = tile_start[tile], end = tile_end[tile];
+  const size_t pix = static_cast<size_t>(tile) * PIX + tid;
+  const float4* list = mlist + pix * m;
+  const float4* g_list = g_mlist + pix * m;
+
+  // the suffix total: sum_F out g_out + sum_slots w g_w.  A dead slot
+  // (w = 0) adds nothing, by a select: its cotangent is not read.
+  float g_out[NF];
+  float tot = 0.f;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    g_out[f] = g_blend[pix * NF + f];
+    tot += blend[pix * NF + f] * g_out[f];
+  }
+  for (int s = 0; s < m; ++s) {
+    const float w = list[s].x;
+    if (w != 0.f) tot += w * g_list[s].x;
+  }
+  const float bg_term = t_final[pix] * g_t_final[pix];
+
+  float T = 1.f, prefix = 0.f;
+  bool done = false;
+  int count = 0;
+
+  for (int base = start; base < end; base += BATCH) {
+    if (__syncthreads_count(!done) == 0) break;
+    const int j = base + tid;
+    if (tid < BATCH && j < end) {
+      const int g = pair_gauss[j];
+      const float* row = table + static_cast<size_t>(g) * tab_cols;
+      stage_record<NF>(row, uv_rows + static_cast<size_t>(g) * UV_COLS,
+                       tile_x, tile_y, s_quad[tid], s_feat[tid], s_uv[tid]);
+      s_gauss[tid] = g;
+      s_shift[tid][0] = tile_x - row[COL_ANCHOR];
+      s_shift[tid][1] = tile_y - row[COL_ANCHOR + 1];
+    }
+    __syncthreads();
+
+    const int n_batch = min(BATCH, end - base);
+    for (int k0 = 0; k0 < n_batch; k0 += GROUP) {
+      for (int kk = 0; kk < GROUP; ++kk) {
+        const int k = k0 + kk;
+        float v[C::N];
+#pragma unroll
+        for (int c = 0; c < C::N; ++c) v[c] = 0.f;
+        bool any = false;
+        if (k < n_batch && !done) {
+          const float* q = s_quad[k];
+          float e;
+          const float alpha = pixel_alpha(pixel_power(x, y, q), q[6], &e);
+          const float t_next = T * (1.f - alpha);
+          if (t_next < T_STOP) {
+            done = true;
+          } else {
+            const float w = alpha * T;
+            float g_w = 0.f;
+#pragma unroll
+            for (int f = 0; f < NF; ++f) g_w += s_feat[k][f] * g_out[f];
+            bool in_list = false;
+            float4 g_slot = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (w > 0.f) {
+              if (count < m) {
+                in_list = true;
+                g_slot = g_list[count];
+                g_w += g_slot.x;
+              }
+              ++count;
+            }
+            prefix += w * g_w;
+            const float suffix = tot - prefix;
+            const float g_alpha = T * g_w - (suffix + bg_term) / (1.f - alpha);
+            // d alpha / d power = exp(power) where alpha is neither zeroed
+            // nor clamped at 0.99
+            const float g_power =
+                (alpha > 0.f && e <= ALPHA_CLAMP) ? g_alpha * alpha : 0.f;
+            v[C::QUAD + 0] = x * x * g_power;
+            v[C::QUAD + 1] = y * y * g_power;
+            v[C::QUAD + 2] = x * y * g_power;
+            v[C::QUAD + 3] = x * g_power;
+            v[C::QUAD + 4] = y * g_power;
+            v[C::QUAD + 5] = g_power;
+#pragma unroll
+            for (int f = 0; f < NF; ++f) v[C::FEAT + f] = w * g_out[f];
+            if (in_list) {
+              const Intersection it = intersect(d, s_uv[k]);
+              const float g[3] = {g_slot.y, g_slot.z, g_slot.w};
+              const float s = it.norm + 1e-12f;
+              const float dot =
+                  it.uvn[0] * g[0] + it.uvn[1] * g[1] + it.uvn[2] * g[2];
+              float du[3];
+#pragma unroll
+              for (int i = 0; i < 3; ++i)
+                du[i] = g[i] / s - (it.norm > 0.f ? it.uvn[i] * dot / it.norm
+                                                  : 0.f);
+              float g_t = du[0] * it.jd[0] + du[1] * it.jd[1] + du[2] * it.jd[2];
+              if (!(it.t_raw >= 0.f && it.t_raw <= T_STAR_MAX)) g_t = 0.f;
+              const float g_num = g_t / it.den;
+              const float g_den = it.den_small ? 0.f : -g_t * it.t_raw / it.den;
+              const float dx = d[0], dy = d[1], dz = d[2];
+              v[C::UV + 0] = g_num * dx;
+              v[C::UV + 1] = g_num * dy;
+              v[C::UV + 2] = g_num * dz;
+              v[C::UV + 3] = g_den * dx * dx;
+              v[C::UV + 4] = g_den * 2.f * dx * dy;
+              v[C::UV + 5] = g_den * 2.f * dx * dz;
+              v[C::UV + 6] = g_den * dy * dy;
+              v[C::UV + 7] = g_den * 2.f * dy * dz;
+              v[C::UV + 8] = g_den * dz * dz;
+              v[C::UV + 9] = du[0];
+              v[C::UV + 10] = du[1];
+              v[C::UV + 11] = du[2];
+            }
+            any = alpha > 0.f;  // alpha = 0 leaves every value 0
+            T = t_next;
+          }
+        }
+        // warp sums; a warp none of whose pixels took part writes zeros
+        if (__any_sync(FULL, any)) {
+#pragma unroll
+          for (int c = 0; c < C::N; ++c) {
+            float a = v[c];
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(FULL, a, o);
+            v[c] = a;
+          }
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int c = 0; c < C::N; ++c) s_red[kk][warp][c] = v[c];
+        }
+      }
+      __syncthreads();
+
+      // one thread per (pair of the group, output column)
+      if (tid < GROUP * C::N) {
+        const int kk = tid / C::N, c = tid % C::N;
+        const int k = k0 + kk;
+        if (k < n_batch) {
+          const int g = s_gauss[k];
+          float val;
+          int col;
+          float* out;
+          if (c < 6) {
+            float dq[6];
+#pragma unroll
+            for (int i = 0; i < 6; ++i) {
+              float a = 0.f;
+#pragma unroll
+              for (int wi = 0; wi < WARPS; ++wi) a += s_red[kk][wi][C::QUAD + i];
+              dq[i] = a;
+            }
+            // transpose of shift_to_tile: tile-frame -> anchor-frame
+            const float dtx = s_shift[k][0], dty = s_shift[k][1];
+            const float anchor[6] = {
+                dq[0] + 2.f * dtx * dq[3] + dtx * dtx * dq[5],
+                dq[1] + 2.f * dty * dq[4] + dty * dty * dq[5],
+                dq[2] + dty * dq[3] + dtx * dq[4] + dtx * dty * dq[5],
+                dq[3] + dtx * dq[5],
+                dq[4] + dty * dq[5],
+                dq[5]};
+            val = anchor[c];
+            col = c;
+            out = d_table + static_cast<size_t>(g) * tab_cols;
+          } else {
+            float a = 0.f;
+#pragma unroll
+            for (int wi = 0; wi < WARPS; ++wi) a += s_red[kk][wi][c];
+            val = a;
+            if (c < C::UV) {
+              col = feature_col(c - C::FEAT);
+              out = d_table + static_cast<size_t>(g) * tab_cols;
+            } else {
+              col = c - C::UV;
+              out = d_uv + static_cast<size_t>(g) * UV_COLS;
+            }
+          }
+          if (val != 0.f) atomicAdd(out + col, val);
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+template <int NF>
+void launch(const void* table, int tab_cols, const void* uv_rows,
+            const void* pair_gauss, const void* tile_start,
+            const void* tile_end, const Rays& rays, int n_tiles, int gx,
+            int m, const void* blend, const void* t_final, const void* mlist,
+            const void* g_blend, const void* g_t_final, const void* g_mlist,
+            void* d_table, void* d_uv, cudaStream_t stream) {
+  fused_backward<NF><<<n_tiles, PIX, 0, stream>>>(
+      static_cast<const float*>(table), tab_cols,
+      static_cast<const float*>(uv_rows), static_cast<const int*>(pair_gauss),
+      static_cast<const int*>(tile_start), static_cast<const int*>(tile_end),
+      rays, gx, m, static_cast<const float*>(blend),
+      static_cast<const float*>(t_final), static_cast<const float4*>(mlist),
+      static_cast<const float*>(g_blend),
+      static_cast<const float*>(g_t_final),
+      static_cast<const float4*>(g_mlist), static_cast<float*>(d_table),
+      static_cast<float*>(d_uv));
+}
+
+}  // namespace
+
+// Adds the VJP of kernel A into d_table (N, tab_cols) and d_uv (N, 24),
+// which the caller zeroes.  blend, t_final and mlist are kernel A's outputs
+// for the same arguments; g_* their cotangents, of the same shapes.  rays9
+// is host memory [ax, by, c0].  Returns the launch's cudaGetLastError().
+extern "C" int uvtex_fused_backward(
+    const void* table, int tab_cols, const void* uv_rows,
+    const void* pair_gauss, const void* tile_start, const void* tile_end,
+    const float* rays9, int n_tiles, int gx, int n_f, int m,
+    const void* blend, const void* t_final, const void* mlist,
+    const void* g_blend, const void* g_t_final, const void* g_mlist,
+    void* d_table, void* d_uv, void* stream) {
+  if (n_tiles <= 0) return 0;
+  if (m <= 0 || tab_cols != TABLE_FIXED + n_f - N_FIXED_F)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Rays rays;
+  std::memcpy(rays.ax, rays9, 3 * sizeof(float));
+  std::memcpy(rays.by, rays9 + 3, 3 * sizeof(float));
+  std::memcpy(rays.c0, rays9 + 6, 3 * sizeof(float));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TEXGS_CASE(NF)                                                       \
+  case NF:                                                                   \
+    launch<NF>(table, tab_cols, uv_rows, pair_gauss, tile_start, tile_end,  \
+               rays, n_tiles, gx, m, blend, t_final, mlist, g_blend,        \
+               g_t_final, g_mlist, d_table, d_uv, s);                       \
+    break;
+  switch (n_f) {
+    TEXGS_CASE(7)
+    TEXGS_CASE(10)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TEXGS_CASE
+  return static_cast<int>(cudaGetLastError());
+}

@@ -54,3 +54,11 @@ class MLP(nn.Module):
                                      f"{lin.out_features}), got {tuple(w.shape)}")
                 lin.weight.copy_(w.T)
                 lin.bias.copy_(torch.as_tensor(np.array(b, np.float32)))
+
+    def jax_params(self) -> dict:
+        """texgs's layout of these weights: {"w": [(in, out)], "b": [(out,)]}
+        as numpy arrays (copies)."""
+        return {"w": [lin.weight.detach().T.cpu().numpy().copy()
+                      for lin in self.layers],
+                "b": [lin.bias.detach().cpu().numpy().copy()
+                      for lin in self.layers]}

@@ -1,11 +1,15 @@
-"""UVNet: the S^2 UV-mapping network (port of texgs/nets/uv_net.py:32-131).
+"""UVNet / InvUVNet: the S^2 UV-mapping networks (port of
+texgs/nets/uv_net.py).
 
-  pre_mlp(3 -> emb) -> relu(x + geo_emb) -> mlp(emb -> 3) -> L2-normalize
+  UVNet:    pre_mlp(3 -> emb) -> relu(x + geo_emb) -> mlp(emb -> 3)
+            -> L2-normalize
+  InvUVNet: [hashgrid(uv/2 + 0.5) ->] pre_mlp -> relu(x + geo_emb)
+            -> mlp(emb -> 3), optional xyz scale/offset denormalisation
 
-MLP-only: the stage-3 path applies this net with its Jacobian through a
-hand-rolled forward-mode pass, which texgs supports for the MLP-only net
-alone.  The hash-grid UV net and the inverse UV net are not applied on
-the render path.
+The UVNet is MLP-only: the stage-3 path applies it with its Jacobian
+through a hand-rolled forward-mode pass, which texgs supports for the
+MLP-only net alone.  The InvUVNet of the stage-3 inverse-consistency loss
+may carry a hash grid (nets/hashgrid.py).
 """
 
 from __future__ import annotations
@@ -16,18 +20,20 @@ import torch
 from torch import nn
 
 from texgs_torch.config import Cfg
+from texgs_torch.nets.hashgrid import HashGrid
 from texgs_torch.nets.mlp import MLP
 
 
-class UVNet(nn.Module):
-    def __init__(self, cfg: Cfg, generator: Optional[torch.Generator] = None,
-                 device="cuda"):
+class _EmbeddedMLPs(nn.Module):
+    """pre_mlp (pre_in -> emb), relu(. + geo_emb), mlp (emb -> 3), and the
+    optional xyz scale/offset of ``cfg``: the part UVNet and InvUVNet
+    share."""
+
+    def __init__(self, cfg: Cfg, pre_in: int,
+                 generator: Optional[torch.Generator], device):
         super().__init__()
-        if cfg.pre_mlp_cfg.hash_grid_cfg:
-            raise ValueError("texgs_torch's UVNet is MLP-only (no "
-                             "pre_mlp_cfg.hash_grid_cfg)")
         emb = int(cfg.emb_dim)
-        self.pre_mlp = MLP(3, emb, int(cfg.pre_mlp_cfg.n_hidden_layers),
+        self.pre_mlp = MLP(pre_in, emb, int(cfg.pre_mlp_cfg.n_hidden_layers),
                            int(cfg.pre_mlp_cfg.n_neurons), generator, device)
         self.mlp = MLP(emb, 3, int(cfg.mlp_cfg.n_hidden_layers),
                        int(cfg.mlp_cfg.n_neurons), generator, device)
@@ -38,6 +44,18 @@ class UVNet(nn.Module):
             self.xyz_scale = torch.tensor(cfg.xyz_scale, dtype=torch.float32,
                                           device=device)
 
+    def _mlps(self, x: torch.Tensor, geo_emb: torch.Tensor) -> torch.Tensor:
+        return self.mlp(torch.relu(self.pre_mlp(x) + geo_emb[None, :]))
+
+
+class UVNet(_EmbeddedMLPs):
+    def __init__(self, cfg: Cfg, generator: Optional[torch.Generator] = None,
+                 device="cuda"):
+        if cfg.pre_mlp_cfg.hash_grid_cfg:
+            raise ValueError("texgs_torch's UVNet is MLP-only (no "
+                             "pre_mlp_cfg.hash_grid_cfg)")
+        super().__init__(cfg, 3, generator, device)
+
     def _normalize_input(self, xyz):
         if self.xyz_offset is None:
             return xyz
@@ -45,8 +63,7 @@ class UVNet(nn.Module):
 
     def forward(self, xyz: torch.Tensor, geo_emb: torch.Tensor) -> torch.Tensor:
         """xyz: (N, 3) world -> (N, 3) unit-sphere UV."""
-        h = self.pre_mlp(self._normalize_input(xyz))
-        out = self.mlp(torch.relu(h + geo_emb[None, :]))
+        out = self._mlps(self._normalize_input(xyz), geo_emb)
         return out / (torch.linalg.norm(out, dim=-1, keepdim=True) + 1e-12)
 
     def forward_with_jac(self, xyz: torch.Tensor, geo_emb: torch.Tensor):
@@ -82,6 +99,52 @@ class UVNet(nn.Module):
         """Copy texgs UV-net params {"pre_mlp": ..., "mlp": ...}."""
         self.pre_mlp.load_jax_params(params["pre_mlp"])
         self.mlp.load_jax_params(params["mlp"])
+
+    def jax_params(self) -> dict:
+        """These weights in texgs's layout (``load_jax_params``'s input)."""
+        return {"pre_mlp": self.pre_mlp.jax_params(),
+                "mlp": self.mlp.jax_params()}
+
+
+class InvUVNet(_EmbeddedMLPs):
+    """uv (N, 3) on the unit sphere -> (N, 3) world xyz (texgs
+    ``init_inv_uv_net`` / ``apply_inv_uv_net``)."""
+
+    def __init__(self, cfg: Cfg, generator: Optional[torch.Generator] = None,
+                 device="cuda"):
+        hg = cfg.pre_mlp_cfg.hash_grid_cfg
+        # the hash table takes its values from the generator before the MLPs
+        hashgrid = (HashGrid(int(hg.n_levels), int(hg.n_features_per_level),
+                             int(hg.max_hashmap), generator, device)
+                    if hg else None)
+        super().__init__(cfg, hashgrid.out_dim if hashgrid else 3, generator,
+                         device)
+        self.hashgrid = hashgrid
+
+    def forward(self, uv: torch.Tensor, geo_emb: torch.Tensor) -> torch.Tensor:
+        h = self.hashgrid(uv / 2.0 + 0.5) if self.hashgrid is not None else uv
+        out = self._mlps(h, geo_emb)
+        if self.xyz_scale is not None:
+            out = out * self.xyz_scale + self.xyz_offset
+        return out
+
+    def load_jax_params(self, params: dict) -> None:
+        """Copy texgs inverse-net params {["hashgrid": ...,] "pre_mlp": ...,
+        "mlp": ...}."""
+        if (self.hashgrid is not None) != ("hashgrid" in params):
+            raise ValueError("inv_uv_net: the hash grid of the config and of "
+                             "the params disagree")
+        if self.hashgrid is not None:
+            self.hashgrid.load_jax_params(params["hashgrid"])
+        self.pre_mlp.load_jax_params(params["pre_mlp"])
+        self.mlp.load_jax_params(params["mlp"])
+
+    def jax_params(self) -> dict:
+        out = {"pre_mlp": self.pre_mlp.jax_params(),
+               "mlp": self.mlp.jax_params()}
+        if self.hashgrid is not None:
+            out["hashgrid"] = self.hashgrid.jax_params()
+        return out
 
 
 def _mlp_with_tangents(mlp: MLP, h: torch.Tensor, tang: torch.Tensor):
