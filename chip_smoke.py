@@ -9,8 +9,8 @@ It imports the port only (no JAX, nothing of the texgs package) and needs
 one card.  Phases, in order; any failure exits non-zero:
 
   1. device  -- requires CUDA, prints the card's name and power limit;
-  2. build   -- compiles every kernel of the stage-3 render from
-                texgs_torch/csrc (one nvcc per source, all started together);
+  2. build   -- compiles every kernel of the port from texgs_torch/csrc
+                (one nvcc per source, all started together);
   3. setup   -- the flagship stage-3 model at full width: 100,000
                 Gaussians on a textured sphere, SH degree 3, an MLP UV net
                 (emb 128, 128-wide) pre-fitted to normalize(xyz), a 1024^2
@@ -40,7 +40,32 @@ one card.  Phases, in order; any failure exits non-zero:
                 versions on the captured arguments;
   9. train timings -- the step's median time, each new kernel's time,
                 plain time, bound and (hash gather) library time, and one
-                step under torch.profiler.
+                step under torch.profiler;
+ 10. stage-1 setup -- configs/prod_stage1.yaml on its checker scene at full
+                width: 50,000 points of textured_sphere_point_cloud(seed 0),
+                800x600; the ground truth is 8 spiral views of that cloud at
+                opacity logit 4.0 and SH degree 0 (image, alpha as the mask,
+                normals), as scripts/make_synthetic_dataset.py builds them,
+                rendered by the port; the model is Gaussian3D of the config,
+                initialised from the cloud through a .ply file;
+ 11. stage-1 training -- one capture step (the arguments of kernels 1 and
+                1'), then STAGE1_STEPS steps at iterations 2581..2600 with SH
+                degree 2 and every prod loss term on; 2600 densifies and
+                prunes and skips Adam.  Every loss and parameter finite, the
+                loss falling, kernels 1 and 1' once a step;
+ 12. stage-1 kernels -- kernel 1 against its plain version pixel by pixel,
+                kernel 1' per column group, on the captured arguments;
+ 13. stage-1 timings -- the step's median, kernel 1 and 1' times, plain
+                times and bounds, and one step under torch.profiler;
+ 14. stage 2 -- the stage-1 model handed off through files (a checkpoint,
+                then extract_pcd to 16,384 points), UVMapGaussian3D of
+                configs/prod_uv_map.yaml trained 1 + STAGE2_STEPS steps over
+                the 8 views: finite, the loss falling, kernel 1 once per
+                camera (the render cache), the hash gather once a step;
+ 15. driver -- driver.train through the port's command line on
+                configs/synthetic_smoke.yaml cut to 150 iterations
+                (densification at 100), then configs/synthetic_uv_map.yaml
+                for 50 iterations from its checkpoint; each stage's test PSNR.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -53,6 +78,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -129,6 +155,50 @@ LOSS_CFG = {
 TRAIN_CFG = {"min_scale_reset_interval": 250}
 FIRST_ITER = 2501
 STEPS = 20
+
+# stages 1 and 2: configs/prod_stage1.yaml and configs/prod_uv_map.yaml
+N_STAGE1 = 50_000
+STAGE1_VIEWS = 8           # of the config's 64 training views
+STAGE1_FIRST_ITER = 2580   # the capture step; the counted steps follow
+STAGE1_STEPS = 20
+STAGE1_SH_DEGREE = 2       # active from iteration 2000 to 2999
+STAGE1_MODEL_CFG = {"type": "Gaussian3D", "sh_degree": 3}
+STAGE1_TRAIN_CFG = {
+    "densification_interval": 100, "opacity_reset_interval": 3000,
+    "densify_from_iter": 125, "densify_until_iter": 3750,
+    "densify_grad_threshold": 0.0002, "min_scale_reset_interval": 0,
+    "min_scale_reset_from_iter": 0, "opacity_prune_interval": 0}
+STAGE1_OPTIM_CFG = {
+    "position_lr_init": 0.00016, "position_lr_final": 0.0000016,
+    "position_lr_delay_mult": 0.01, "position_lr_max_steps": 7500,
+    "feature_lr": 0.0025, "opacity_lr": 0.05, "scaling_lr": 0.005,
+    "rotation_lr": 0.001, "percent_dense": 0.01}
+STAGE1_LOSS_CFG = {
+    "lambda_dssim": 0.2, "lambda_alpha": 1.0,
+    "lambda_norm": 0.1, "norm_range": [2500, None],
+    "lambda_norm_smooth": 0.1, "norm_smooth_range": [2500, None],
+    "lambda_opacity_reg": 0.001, "opacity_reg_range": [2500, None]}
+STAGE2_STEPS = 20
+PCD_POINTS = 16_384
+NET_128 = {"emb_dim": 128,
+           "pre_mlp_cfg": {"n_hidden_layers": 1, "n_neurons": 128},
+           "mlp_cfg": {"n_hidden_layers": 2, "n_neurons": 128}}
+STAGE2_MODEL_CFG = {
+    "type": "UVMapGaussian3D", "background": [0, 0, 0],
+    "max_inverse_points": 8192, "uv_net_cfg": NET_128,
+    "inv_uv_net_cfg": dict(NET_128, n_sample_points=2048, patch_scale=8,
+                           pre_mlp_cfg={"hash_grid_cfg": {
+                               "n_levels": 8, "n_features_per_level": 4,
+                               "max_hashmap": 12},
+                               "n_hidden_layers": 1, "n_neurons": 128}),
+    "geo_emb_dim": 128}
+STAGE2_OPTIM_CFG = {"uv_net_lr": 0.0001, "inv_uv_net_lr": 0.0001,
+                    "uv_net_milestones": [2500], "uv_net_gamma": 0.33}
+STAGE2_LOSS_CFG = {"lambda_inverse": 1.0, "inverse_range": [0, None],
+                   "lambda_chamfer": 1.0, "chamfer_range": [0, None],
+                   "lambda_inverse2": 1.0, "inverse_range2": [0, None]}
+DRIVER_S1_ITERS = 150
+DRIVER_S2_ITERS = 50
 # the scene's camera extent, texgs's spatial_lr_scale: the orbit radius
 # times the 1.1 of its scene normalisation
 SPATIAL_LR_SCALE = 3.5 * 1.1
@@ -658,6 +728,365 @@ def train_phases(torch, model, cams, gt_views):
     ]
 
 
+def check_kernel_1(torch, got, want):
+    """Kernel 1 against its plain version, pixel by pixel, as check_kernel_a
+    holds kernel A: a pixel is off if a channel or its T_final lies beyond
+    atol 1e-5 (1e-6 for T) + rtol 1e-4, or its n_eval differs; at most
+    MAX_OFF_PIXELS pixels may be off (T-ulp stop flips), and no channel or
+    T_final anywhere by more than 0.05.  Returns the max abs error."""
+    (blend, t_fin, n_eval), (blend_w, t_w, n_eval_w) = got, want
+
+    def beyond(g, w, atol):
+        return (g - w).abs() > atol + 1e-4 * w.abs()
+
+    off = (beyond(blend, blend_w, 1e-5).any(-1) | beyond(t_fin, t_w, 1e-6)
+           | (n_eval != n_eval_w))
+    errs = {"blend": (blend - blend_w).abs().max().item(),
+            "T_final": (t_fin - t_w).abs().max().item()}
+    n_off = int(off.sum())
+    log(f"  1: {n_off} of {off.numel()} pixels off (allowed "
+        f"{MAX_OFF_PIXELS}); max abs err blend {errs['blend']:.3e}, T_final "
+        f"{errs['T_final']:.3e}; {int((n_eval != n_eval_w).sum())} n_eval "
+        "counts differ")
+    if not (n_off <= MAX_OFF_PIXELS and max(errs.values()) <= 0.05
+            and all(math.isfinite(v) for v in errs.values())):
+        fail("kernel 1 disagrees with its plain version")
+    return max(errs.values())
+
+
+def spiral_ground_truth(torch, device, pcd, cams):
+    """Ground-truth views of the cloud at opacity logit 4.0 and SH degree 0
+    (scripts/make_synthetic_dataset.py:209-265), rendered by the port:
+    cameras with image, alpha as the mask, and normals."""
+    from texgs_torch.core.camera import with_ground_truth
+    from texgs_torch.core.state import init_from_pcd
+    from texgs_torch.render.render import render
+
+    gt = init_from_pcd(pcd.points, pcd.colors, 0, device=device)
+    gt.opacity = torch.full_like(gt.opacity, 4.0)
+    out = []
+    with torch.no_grad():
+        for cam in cams:
+            v = render(cam, xyz=gt.xyz, opacity=gt.get_opacity(),
+                       scaling=gt.get_scaling(), rotation=gt.get_rotation(),
+                       features=gt.get_features(), active_sh_degree=0,
+                       bg_color=torch.zeros(3, device=device))
+            out.append(with_ground_truth(cam, v["render"].clamp(0, 1),
+                                         v["alpha"], normal=v["norm"]))
+    return out
+
+
+def stage1_phases(torch, device, work_dir):
+    """Phases 10-13 (see the module docstring).  Returns (the trained
+    model, its training views, the JSON entries of kernels 1 and 1')."""
+    from texgs_torch.config import Cfg
+    from texgs_torch.data.synthetic import (orbit_cameras,
+                                            textured_sphere_point_cloud)
+    from texgs_torch.io.ply import read_pcd, write_ply_xyz
+    from texgs_torch.kernels import raster as kr
+    from texgs_torch.train.gaussian3d import Gaussian3D
+
+    # ----------------------------------------------------- 10. stage-1 setup
+    t0 = time.perf_counter()
+    pcd = textured_sphere_point_cloud(N_STAGE1, seed=0)
+    cams = orbit_cameras(STAGE1_VIEWS, radius=3.5, width=WIDTH, height=HEIGHT,
+                         spiral=True)
+    views = spiral_ground_truth(torch, device, pcd, cams)
+    # the model starts from the cloud through the dataset's .ply, as the
+    # config's data (make_synthetic_dataset.py --init_ply) hands it over
+    ply = f"{work_dir}/points3d.ply"
+    write_ply_xyz(ply, pcd.points, colors=pcd.colors)
+    model = Gaussian3D(Cfg(STAGE1_MODEL_CFG), device=device)
+    train_cfg = Cfg(STAGE1_TRAIN_CFG)
+    model.bind_train_cfg(train_cfg, [0, 0, 0])
+    model.initialize(read_pcd(ply), SPATIAL_LR_SCALE)
+    model.setup_optim(Cfg(STAGE1_OPTIM_CFG))
+    model.active_sh_degree = STAGE1_SH_DEGREE
+    torch.cuda.synchronize()
+    cover = float(np.mean([v.alpha_mask.mean().item() for v in views]))
+    log(f"[stage1 setup] {model.n_points} Gaussians, {WIDTH}x{HEIGHT}, "
+        f"{len(views)} spiral views (alpha covers {cover:.3f}), SH degree "
+        f"{model.active_sh_degree} of {model.max_sh_degree}, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -------------------------------------------------- 11. stage-1 training
+    loss_cfg = Cfg(STAGE1_LOSS_CFG)
+
+    def step(it):
+        loss, stats, _ = model.compute_loss(it, 7500, views[it % len(views)],
+                                            None, loss_cfg)
+        model.optimize_step(it, 7500, train_cfg, {})
+        return loss, stats
+
+    seen = {}
+    t0 = time.perf_counter()
+    with recording(kr, "raster_pairs_forward", seen), \
+            recording(kr, "raster_pairs_backward", seen):
+        loss, stats = step(STAGE1_FIRST_ITER)
+    torch.cuda.synchronize()
+    if set(seen) != {"raster_pairs_forward", "raster_pairs_backward"}:
+        fail(f"a stage-1 step called {sorted(seen)}")
+    log(f"[stage1 train] capture step {STAGE1_FIRST_ITER}: loss "
+        f"{loss.item():.5f}, {time.perf_counter() - t0:.2f} s; terms "
+        + ", ".join(f"{k} {v.item():.4f}" for k, v in stats.items()
+                    if k.startswith("L"))
+        + f"; {int(stats['n_pairs'])} pairs")
+    want_terms = {"Ll1", "Lssim", "Lalpha", "Lnorm", "Lnorm_smooth",
+                  "Lopacity_reg"}
+    if not want_terms <= set(stats):
+        fail(f"stage 1 misses loss terms {want_terms - set(stats)}")
+
+    counters = {"raster": kr.raster_pairs,
+                "raster_bwd": kr.raster_pairs_backward}
+    for fn in counters.values():
+        fn.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    last = STAGE1_FIRST_ITER + STAGE1_STEPS
+    for it in range(STAGE1_FIRST_ITER + 1, last + 1):
+        n_before = model.n_points
+        loss, stats = step(it)
+        losses.append(loss.item())
+        if not all(math.isfinite(v.item()) for v in stats.values()):
+            fail(f"stage-1 step {it}: a loss term is not finite: {stats}")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"[stage1 train] {STAGE1_STEPS} steps ({STAGE1_FIRST_ITER + 1}.."
+        f"{last}) in {train_s:.3f} s; launches {launches}; densification at "
+        f"{last}: {n_before} -> {model.n_points} Gaussians")
+    log("  total loss by step: " + ", ".join(f"{v:.5f}" for v in losses))
+    first, last_mean = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"  mean loss of the first 5 steps {first:.5f}, of the last 5 "
+        f"{last_mean:.5f} ({(last_mean - first) / first:+.2%})")
+    for name, n in launches.items():
+        if n != STAGE1_STEPS:
+            fail(f"kernel {name} launched {n} times in {STAGE1_STEPS} "
+                 "stage-1 steps")
+    if model.n_points == n_before:
+        fail("the densification step left the Gaussian count unchanged")
+    for name, a in model.state_dict()["params"].items():
+        if not np.isfinite(a).all():
+            fail(f"stage-1 parameter {name} is not finite after training")
+    if not last_mean < first:
+        fail("the stage-1 training loss did not fall")
+
+    # -------------------------------------------------- 12. stage-1 kernels
+    table, pairs, gx = seen["raster_pairs_forward"]
+    b_args = seen["raster_pairs_backward"]
+    blend, t_final, g_blend, g_t_final = b_args[3:]
+    log("[stage1 kernels] each against its plain version, on the arguments "
+        f"the step-{STAGE1_FIRST_ITER} render and backward gave it")
+    n_tiles = pairs.tile_counts.numel()
+    n_chunks = -(-int(pairs.tile_counts.max()) // kr.CHUNK)
+    # the plain backward keeps about 16 (tiles, 256, CHUNK) f32
+    # intermediates per chunk for autograd; where that would not fit, the
+    # check keeps a prefix of whole tile rows (tile coordinates follow the
+    # tile index)
+    need = n_chunks * 16 * n_tiles * 256 * kr.CHUNK * 4
+    free = torch.cuda.mem_get_info()[0]
+    rows = -(-n_tiles // gx)
+    if need > 0.6 * free:
+        rows = max(1, int(rows * 0.6 * free / need))
+    t_sub = min(n_tiles, rows * gx)
+    sub = pairs._replace(tile_start=pairs.tile_start[:t_sub],
+                         tile_end=pairs.tile_end[:t_sub],
+                         tile_counts=pairs.tile_counts[:t_sub])
+    cots = (g_blend[:t_sub].contiguous(), g_t_final[:t_sub].contiguous())
+    log(f"  {int(pairs.n_pairs)} pairs over {n_tiles} tiles (at most "
+        f"{int(pairs.tile_counts.max())} a tile); 1' is checked on the first "
+        f"{t_sub} tiles (plain backward needs about {need / 1e9:.1f} GB for "
+        f"all, {free / 1e9:.1f} GB free)")
+    with torch.no_grad():
+        got_1 = kr.raster_pairs_forward(table, pairs, gx)
+        want_1 = kr.raster_scan(table, pairs, gx)
+        err_1 = check_kernel_1(torch, got_1, want_1)
+        fwd_sub = kr.raster_pairs_forward(table, sub, gx)
+        got_1b = kr.raster_pairs_backward(table, sub, gx, *fwd_sub[:2], *cots)
+        torch.cuda.reset_peak_memory_stats()
+        want_1b = kr.raster_scan_vjp(table, sub, gx, *cots)
+        torch.cuda.synchronize()
+        log(f"  1' plain backward peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        err_1b = max(check_scaled(torch, f"1' {name}", got_1b[:, cols],
+                                  want_1b[:, cols], 1e-3, 1e-3,
+                                  MAX_OFF_GAUSSIANS, rows=True)
+                     for name, cols in (("quad", slice(0, 6)),
+                                        ("channels", slice(7, 14))))
+        if got_1b[:, [6, 14, 15]].any():
+            fail("kernel 1' wrote gradient into a column it must leave at zero")
+        del want_1b
+
+    # -------------------------------------------------- 13. stage-1 timings
+    it = [last + 1]
+
+    def timed_step():
+        step(it[0])
+        it[0] += 1
+
+    step_ms = median_ms(torch, timed_step)
+    log(f"[time] stage-1 step: {step_ms:.3f} ms (median of {REPS}, compute_"
+        "loss + optimize_step)")
+    full_b = (table, pairs, gx, *got_1[:2], g_blend, g_t_final)
+    with torch.no_grad():
+        ms_1 = median_ms(torch, lambda: kr.raster_pairs_forward(table, pairs, gx))
+        plain_1 = median_ms(torch, lambda: kr.raster_scan(table, pairs, gx),
+                            reps=3)
+        ms_1b = median_ms(torch, lambda: kr.raster_pairs_backward(*full_b))
+        plain_1b = median_ms(torch, lambda: kr.raster_scan_vjp(
+            table, sub, gx, *cots), reps=3)
+    n_f = 7
+    n_eval = int(got_1[2].sum())
+    pair_bytes = nbytes(table, pairs.pair_gauss, pairs.tile_start,
+                        pairs.tile_end)
+    # kernel 1 reads the table and the pair list and writes the channels,
+    # T_final and n_eval; 16 + 2F f32 ops per evaluated (pixel, pair)
+    bytes_1 = pair_bytes + nbytes(*got_1)
+    bound_1, by_1 = bound(bytes_1, n_eval * (OPS_A_EVAL + 2 * n_f))
+    # kernel 1' reads those, the channels and T_final with their
+    # cotangents, and writes the table gradient; 40 + 3F ops an entry
+    bytes_1b = pair_bytes + nbytes(*got_1[:2], g_blend, g_t_final, table)
+    ops_1b = n_eval * (OPS_A_BWD_EVAL + 3 * n_f)
+    bound_1b, by_1b = bound(bytes_1b, ops_1b)
+    sub_note = "" if t_sub == n_tiles else f" on {t_sub} of {n_tiles} tiles"
+    log(f"[time] kernel 1 raster: {ms_1:.4f} ms, plain {plain_1:.3f} ms, "
+        f"bound {bound_1:.4f} ms ({by_1}: {bytes_1 / 1e6:.1f} MB, "
+        f"{n_eval * (OPS_A_EVAL + 2 * n_f) / 1e9:.3f} GFLOP; {n_eval} "
+        "evaluated pairs)")
+    log(f"[time] kernel 1' raster_bwd: {ms_1b:.4f} ms, plain {plain_1b:.3f} "
+        f"ms{sub_note}, bound {bound_1b:.4f} ms ({by_1b}: "
+        f"{bytes_1b / 1e6:.1f} MB, {ops_1b / 1e9:.3f} GFLOP)")
+    profile_device(torch, "one stage-1 step", timed_step, step_ms)
+    entries = [
+        entry("raster", "texgs_torch/csrc/raster.cu",
+              "texgs/kernels/pallas_raster.py:309", launches["raster"], ms_1,
+              plain_1, bound_1, by_1, err_1),
+        entry("raster_bwd", "texgs_torch/csrc/raster_bwd.cu",
+              "texgs/kernels/pallas_raster.py:359", launches["raster_bwd"],
+              ms_1b, plain_1b, bound_1b, by_1b, err_1b),
+    ]
+    return model, views, entries
+
+
+def stage2_phase(torch, device, stage1, views, work_dir):
+    """Phase 14 (see the module docstring)."""
+    from texgs_torch.config import Cfg
+    from texgs_torch.io import checkpoint as ckpt
+    from texgs_torch.kernels import raster as kr
+    from texgs_torch.nets import hash_gather as kh
+    from texgs_torch.tools.extract_pcd import extract_pcd
+    from texgs_torch.train.optim import flatten_tree
+    from texgs_torch.train.uv_map_gaussian3d import UVMapGaussian3D
+
+    t0 = time.perf_counter()
+    ck = f"{work_dir}/stage1/checkpoints/7500"
+    ckpt.save(ck, stage1.state_dict(), 7500)
+    extract_pcd(ck, f"{work_dir}/stage1/pcd", PCD_POINTS, device=device)
+    torch.cuda.synchronize()
+    log(f"[stage2] stage-1 checkpoint ({stage1.n_points} Gaussians) and "
+        f"extract_pcd to {PCD_POINTS} points: {time.perf_counter() - t0:.1f} s")
+    cfg = dict(STAGE2_MODEL_CFG, init_from=ck,
+               pcd_load_from=f"{work_dir}/stage1/pcd.npy")
+    model = UVMapGaussian3D(Cfg(cfg), device=device)
+    model.bind_train_cfg(Cfg({}), [0, 0, 0])
+    model.initialize()
+    model.setup_optim(Cfg(STAGE2_OPTIM_CFG))
+    loss_cfg = Cfg(STAGE2_LOSS_CFG)
+
+    def step(it):
+        loss, stats, _ = model.compute_loss(it, 4000, views[it % len(views)],
+                                            None, loss_cfg)
+        model.optimize_step(it, 4000, Cfg({}), {})
+        return loss, stats
+
+    loss, stats = step(1)
+    log(f"[stage2] first step: loss {loss.item():.5f}; terms "
+        + ", ".join(f"{k} {v.item():.4f}" for k, v in stats.items()
+                    if k.startswith("L")))
+    if set(stats) != {"Linv", "Lchamfer", "Linv2", "total_loss"}:
+        fail(f"stage 2 computed {sorted(stats)}")
+    for fn in (kr.raster_pairs, kh.hash_gather):
+        fn.launches = 0
+    cached = len(model._depth_alpha_cache)
+    losses = []
+    t0 = time.perf_counter()
+    for it in range(2, STAGE2_STEPS + 2):
+        loss, stats = step(it)
+        losses.append(loss.item())
+        if not all(math.isfinite(v.item()) for v in stats.values()):
+            fail(f"stage-2 step {it}: a loss term is not finite: {stats}")
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    new_cams = len(model._depth_alpha_cache) - cached
+    launches = {"raster": kr.raster_pairs.launches,
+                "hash_gather": kh.hash_gather.launches}
+    log(f"[stage2] {STAGE2_STEPS} steps in {s:.3f} s ({s / STAGE2_STEPS * 1e3:.1f} "
+        f"ms a step incl. {new_cams} first renders); launches {launches}")
+    log("  total loss by step: " + ", ".join(f"{v:.5f}" for v in losses))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"  mean loss of the first 5 steps {first:.5f}, of the last 5 "
+        f"{last:.5f} ({(last - first) / first:+.2%})")
+    if launches != {"raster": new_cams, "hash_gather": STAGE2_STEPS}:
+        fail(f"stage 2 launched {launches}; expected kernel 1 once for each "
+             f"of the {new_cams} cameras first seen and K5 once a step")
+    for name, a in flatten_tree(model.state_dict()["net_state"]).items():
+        if not np.isfinite(a).all():
+            fail(f"stage-2 parameter {name} is not finite after training")
+    if not last < first:
+        fail("the stage-2 training loss did not fall")
+    it = [STAGE2_STEPS + 2]
+
+    def timed_step():
+        step(it[0])
+        it[0] += 1
+
+    step_ms = median_ms(torch, timed_step)
+    log(f"[time] stage-2 step: {step_ms:.3f} ms (median of {REPS}, cached "
+        "renders)")
+    profile_device(torch, "one stage-2 step", timed_step, step_ms)
+
+
+def driver_phase(work_dir, device):
+    """Phase 15: the port's command line, stage 1 then stage 2 from its
+    checkpoint.  Returns each stage's test PSNR."""
+    import glob
+
+    from texgs_torch.config import dump_config, load_config
+    from texgs_torch.tools.extract_pcd import extract_pcd
+    from texgs_torch.train.__main__ import main as train_main
+
+    def run(config, run_name, n_iter, **edits):
+        cfg = load_config(config)
+        cfg.train_cfg.update(num_iterations=n_iter, visual_iters=[n_iter],
+                             ckpt_iters=[n_iter])
+        for section, values in edits.items():
+            cfg[section].update(values)
+        path = f"{work_dir}/{run_name}.yaml"
+        dump_config(cfg, path)
+        t0 = time.perf_counter()
+        _, _, ev = train_main([path, "--workspace", work_dir, "--run_name",
+                               run_name, "--device", str(device)])
+        log(f"[driver] {run_name} ({config}): {n_iter} iterations in "
+            f"{time.perf_counter() - t0:.1f} s, test PSNR "
+            f"{ev['test']['psnr']:.2f} dB, train PSNR "
+            f"{ev['train']['psnr']:.2f} dB")
+        ck = sorted(glob.glob(f"{work_dir}/{run_name}/*/checkpoints/"
+                              f"{n_iter}.npz"))[-1]
+        return ev["test"]["psnr"], ck[:-len(".npz")]
+
+    # cut to DRIVER_S1_ITERS iterations, densifying at 100
+    psnr1, ck1 = run("configs/synthetic_smoke.yaml", "s1", DRIVER_S1_ITERS,
+                     train_cfg={"densify_from_iter": 50},
+                     optim_cfg={"position_lr_max_steps": DRIVER_S1_ITERS})
+    if not math.isfinite(psnr1):
+        fail(f"the driver's stage-1 test PSNR is {psnr1}")
+    extract_pcd(ck1, f"{work_dir}/s1_pcd", 4096, device=device)
+    psnr2, _ = run("configs/synthetic_uv_map.yaml", "s2", DRIVER_S2_ITERS,
+                   model_cfg={"init_from": ck1,
+                              "pcd_load_from": f"{work_dir}/s1_pcd.npy"})
+    return psnr1, psnr2
+
+
 def build_model(torch, device):
     from texgs_torch.config import Cfg
     from texgs_torch.core.state import init_from_pcd
@@ -866,6 +1295,16 @@ def main() -> int:
                        lambda: model.render(cams[0]), render_ms)
 
     kernels += train_phases(torch, model, cams, views)
+    del model, views, retextured, a_args, b_args, got_a, want_a, got_b, want_b
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as work_dir:
+        stage1, s1_views, entries = stage1_phases(torch, device, work_dir)
+        kernels += entries
+        stage2_phase(torch, device, stage1, s1_views, work_dir)
+        del stage1, s1_views
+        torch.cuda.empty_cache()
+        driver_phase(work_dir, device)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,8 @@ column group (quad, channels, uv rows) at atol 1e-3 max|plain| + rtol
 1e-3, with at most 4 Gaussians beyond (the stop flips above move whole
 entries); B' at tests/test_textile.py's tolerances (d texture 1e-5 +
 1e-3 |x|, live-slot d M-lists 3e-5 + 1e-3 |x|); the hash gather exactly.
+Kernels 1 and 1' (the stage-1/2 blend) are held as A and A' are, without
+the M-list and uv rows.
 """
 
 import numpy as np
@@ -38,6 +40,8 @@ from texgs_torch.kernels.tex_term import (mlist_tex_term, mlist_tex_term_vjp,
                                           tex_term, tex_term_backward)
 from texgs_torch.kernels.uvtex_fused import (fused_pairs, fused_pairs_backward,
                                              mlist_scan, mlist_scan_vjp)
+from texgs_torch.kernels.raster import (raster_pairs, raster_pairs_backward,
+                                        raster_scan, raster_scan_vjp)
 from texgs_torch.nets.hash_gather import gather_plain, hash_gather
 
 
@@ -457,5 +461,264 @@ def test_train_step_on_card_matches_cpu(cuda_device):
         a, b = np.asarray(want[k]) / 0.1, np.asarray(got[k]) / 0.1
         assert np.isfinite(b).all(), k
         denom = np.abs(a).max() + 1e-8
+        np.testing.assert_allclose(b / denom, a / denom, atol=2e-3,
+                                   err_msg=f"grad mismatch: {k}")
+
+
+def kernel_1_inputs(n=3000, width=80, height=64, seed=0):
+    """Kernel 1's inputs for one view of a textured sphere with SH colours
+    (CPU tensors): (table, pairs, gx)."""
+    pcd = textured_sphere_point_cloud(n, seed=seed)
+    st = init_from_pcd(pcd.points, pcd.colors, 3, device="cpu")
+    cam = orbit_cameras(1, radius=3.5, width=width, height=height)[0]
+    rng = np.random.default_rng(seed)
+    campos = torch.as_tensor(cam.camera_center)
+    feats = torch.cat([st.features_dc, torch.as_tensor(
+        0.1 * rng.normal(size=(n, 15, 3)), dtype=torch.float32)], dim=1)
+    opacity = torch.as_tensor(rng.uniform(0.05, 0.99, size=(n, 1)),
+                              dtype=torch.float32)
+    proj = project.project_gaussians(
+        st.xyz, torch.exp(st.scaling), st.rotation, opacity,
+        project.sh_colors(feats, st.xyz, campos, 3),
+        torch.as_tensor(cam.world_view), torch.as_tensor(cam.full_proj),
+        campos, width, height, cam.tanfovx, cam.tanfovy)
+    pairs = binning.build_pairs(proj.means2d, proj.depths, proj.radii,
+                                height, width)
+    return (tile_raster.build_gauss_table(proj), pairs,
+            binning.grid_shape(height, width)[1])
+
+
+def opaque_stack_inputs(n_opaque=4, n_dead=2):
+    """One 16x16 tile covered by n_opaque flat layers of alpha 0.99 and,
+    behind them, n_dead layers whose channels are NaN: every pixel stops
+    before reaching them.  Returns (table, pairs, gx=1)."""
+    n = n_opaque + n_dead
+    table = torch.zeros((n, 16))
+    logop = float(np.log(0.999))
+    table[:, 5] = logop          # flat exponent: power = log-opacity
+    table[:, 6] = logop
+    table[:, 7:14] = torch.linspace(0.1, 0.7, 7)
+    table[n_opaque:, 7:14] = float("nan")
+    pairs = binning.PairList(
+        pair_gauss=torch.arange(n, dtype=torch.int32),
+        pair_tile=torch.zeros(n, dtype=torch.int32),
+        tile_start=torch.zeros(1, dtype=torch.int32),
+        tile_end=torch.full((1,), n, dtype=torch.int32),
+        tile_counts=torch.full((1,), n, dtype=torch.int32),
+        n_pairs=torch.tensor(n), overflowed=torch.tensor(False))
+    return table, pairs, 1
+
+
+def _to1(dev, args):
+    table, pairs, gx = args
+    return table.to(dev), binning.PairList(*(t.to(dev) for t in pairs)), gx
+
+
+def _raster_pixels_off(got, want):
+    """Pixels where kernel 1 and its plain version disagree: a channel or
+    T_final beyond atol 1e-5 (1e-6 for T) + rtol 1e-4, or another n_eval."""
+    def beyond(g, w, atol):
+        return (g - w).abs() > atol + 1e-4 * w.abs()
+
+    return int((beyond(got[0], want[0], 1e-5).any(-1)
+                | beyond(got[1], want[1], 1e-6) | (got[2] != want[2])).sum())
+
+
+def test_raster_wrappers_run_plain_version_on_cpu():
+    args = kernel_1_inputs(n=600, width=48, height=32)
+    outs = raster_scan(*args)
+    cots = kernel_a_cotangents(outs[:2] + (outs[0],))[:2]
+    before = (raster_pairs.launches, raster_pairs_backward.launches)
+    got = raster_pairs(*args)
+    d_table = raster_pairs_backward(*args, *outs[:2], *cots)
+    assert (raster_pairs.launches, raster_pairs_backward.launches) == before
+    for a, b in zip(got, outs):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(d_table, raster_scan_vjp(*args, *cots),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_raster_rejects_channels_off_the_path(cuda_device):
+    """Kernel 1 is built for the stage-1/2 path's F = 7 only: the wrapper
+    refuses another F, and so does the C entry (cudaErrorInvalidValue)."""
+    from texgs_torch import _build
+    from texgs_torch.kernels import raster as kr
+
+    table, pairs, gx = _to1(cuda_device, kernel_1_inputs(n=200))
+    wide = torch.cat([table, table[:, :3]], dim=1).contiguous()
+    with pytest.raises(ValueError, match="blend channels"):
+        raster_pairs(wide, pairs, gx)
+    n_tiles = pairs.tile_counts.numel()
+    out = torch.empty((n_tiles, 256, 10), device=cuda_device)
+    t_fin = torch.empty((n_tiles, 256), device=cuda_device)
+    n_eval = torch.empty((n_tiles, 256), dtype=torch.int32, device=cuda_device)
+    p = _build.ptr
+    err = _build.function("raster", "raster_forward", kr._FWD_ARGS)(
+        p(wide), wide.shape[1], p(pairs.pair_gauss), p(pairs.tile_start),
+        p(pairs.tile_end), n_tiles, gx, 10, p(out), p(t_fin), p(n_eval),
+        _build.stream_of(wide))
+    assert err == 1  # cudaErrorInvalidValue
+    err = _build.function("raster_bwd", "raster_backward", kr._BWD_ARGS)(
+        p(wide), wide.shape[1], p(pairs.pair_gauss), p(pairs.tile_start),
+        p(pairs.tile_end), n_tiles, gx, 10, p(out), p(t_fin), p(out),
+        p(t_fin), p(wide), _build.stream_of(wide))
+    assert err == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(80, 64), (200, 136)], ids=str)
+def test_raster_kernel_matches_plain(cuda_device, size):
+    args = _to1(cuda_device, kernel_1_inputs(width=size[0], height=size[1]))
+    before = raster_pairs.launches
+    got = raster_pairs(*args)
+    torch.cuda.synchronize()
+    assert raster_pairs.launches == before + 1
+    want = raster_scan(*args)
+    assert _raster_pixels_off(got, want) <= 4
+    for a, b in zip(got[:2], want[:2]):
+        assert (a - b).abs().max().item() <= 0.05
+    assert int(got[2].sum()) > 0
+
+
+def assert_raster_backward_close(got, want, max_off=4):
+    """Kernel 1' against its plain version: per column group (quad,
+    channels), atol 1e-3 of the group's max |plain| + rtol 1e-3, at most
+    max_off Gaussians beyond; a zero output must fail."""
+    for name, cols in (("quad", slice(0, 6)), ("channels", slice(7, 14))):
+        g, w = got[:, cols], want[:, cols]
+        assert bool(torch.isfinite(g).all()), name
+        tol = 1e-3 * w.abs().max() + 1e-3 * w.abs()
+        off = int(((g - w).abs() > tol).any(-1).sum())
+        assert off <= max_off, f"{name}: {off} Gaussians beyond tolerance"
+        assert int((w.abs() > tol).any(-1).sum()) > max_off, \
+            f"{name}: the check could not refuse zeros"
+    assert not bool(got[:, [6, 14, 15]].any())
+
+
+@pytest.mark.cuda
+def test_raster_backward_kernel_matches_plain(cuda_device):
+    args = _to1(cuda_device, kernel_1_inputs())
+    outs = raster_pairs(*args)
+    rng = np.random.default_rng(5)
+    cots = [torch.as_tensor(rng.normal(size=tuple(t.shape)), dtype=torch.float32,
+                            device=cuda_device) for t in outs[:2]]
+    before = raster_pairs_backward.launches
+    got = raster_pairs_backward(*args, *outs[:2], *cots)
+    torch.cuda.synchronize()
+    assert raster_pairs_backward.launches == before + 1
+    assert_raster_backward_close(got, raster_scan_vjp(*args, *cots))
+
+
+@pytest.mark.cuda
+def test_raster_backward_through_autograd(cuda_device):
+    table, pairs, gx = _to1(cuda_device, kernel_1_inputs())
+    t = table.clone().requires_grad_(True)
+    outs = raster_pairs(t, pairs, gx)
+    rng = np.random.default_rng(8)
+    cots = [torch.as_tensor(rng.normal(size=tuple(o.shape)), dtype=torch.float32,
+                            device=cuda_device) for o in outs[:2]]
+    before = raster_pairs_backward.launches
+    (got,) = torch.autograd.grad(outs[:2], (t,), cots)
+    assert raster_pairs_backward.launches == before + 1
+    assert_raster_backward_close(got, raster_scan_vjp(table, pairs, gx, *cots))
+
+
+@pytest.mark.cuda
+def test_raster_kernels_empty_scene_and_dead_nan(cuda_device):
+    """No pairs: T = 1, zero channels and no gradient.  An opaque stack
+    with NaN channels behind it: the NaN reaches neither output."""
+    table, pairs, gx = _to1(cuda_device, kernel_1_inputs(n=300))
+    empty = binning.PairList(
+        pairs.pair_gauss[:0], pairs.pair_tile[:0],
+        torch.zeros_like(pairs.tile_start), torch.zeros_like(pairs.tile_end),
+        torch.zeros_like(pairs.tile_counts), pairs.n_pairs * 0,
+        pairs.overflowed)
+    blend, t_final, n_eval = raster_pairs(table, empty, gx)
+    assert bool((blend == 0).all()) and bool((t_final == 1).all())
+    assert not bool(n_eval.any())
+    d = raster_pairs_backward(table, empty, gx, blend, t_final,
+                              torch.ones_like(blend), torch.ones_like(t_final))
+    assert not bool(d.any())
+    table, pairs, gx = _to1(cuda_device, opaque_stack_inputs())
+    blend, t_final, n_eval = raster_pairs(table, pairs, gx)
+    assert bool(torch.isfinite(blend).all()) and bool((n_eval < 6).all())
+    d = raster_pairs_backward(table, pairs, gx, blend, t_final,
+                              torch.ones_like(blend), torch.ones_like(t_final))
+    assert bool(torch.isfinite(d).all()) and not bool(d[4:].any())
+
+
+def _stage1_model(device, sd=None):
+    """A small stage-1 model: 3,000 Gaussians, SH degree 3 (2 active),
+    random opacities; from the CPU model's state dict when one is given."""
+    from texgs_torch.config import Cfg
+    from texgs_torch.train.gaussian3d import Gaussian3D
+
+    optim_cfg = Cfg({"position_lr_init": 1.6e-4, "position_lr_final": 1.6e-6,
+                     "position_lr_delay_mult": 0.01,
+                     "position_lr_max_steps": 7500, "feature_lr": 0.0025,
+                     "opacity_lr": 0.05, "scaling_lr": 0.005,
+                     "rotation_lr": 0.001, "percent_dense": 0.01})
+    model = Gaussian3D(Cfg({"sh_degree": 3}), device=device)
+    if sd is None:
+        pcd = textured_sphere_point_cloud(3000, seed=0)
+        model.initialize(pcd, 3.85)
+        rng = np.random.default_rng(0)
+        model.state.opacity = torch.as_tensor(
+            rng.uniform(-1, 3, size=(3000, 1)), dtype=torch.float32,
+            device=device)
+        model.state.features_rest = torch.as_tensor(
+            0.05 * rng.normal(size=(3000, 15, 3)), dtype=torch.float32,
+            device=device)
+        model.setup_optim(optim_cfg)
+        model.active_sh_degree = 2
+    else:
+        model.load_state_dict(sd, optim_cfg)
+    # configs/prod_stage1.yaml's schedule: iteration 2581 is no surgery
+    model.bind_train_cfg(Cfg({
+        "densification_interval": 100, "opacity_reset_interval": 3000,
+        "densify_from_iter": 125, "densify_until_iter": 3750,
+        "min_scale_reset_interval": 0, "opacity_prune_interval": 0}),
+        [0.1, 0.2, 0.3])
+    return model
+
+
+@pytest.mark.cuda
+def test_stage1_step_on_card_matches_cpu(cuda_device):
+    """One stage-1 training step with every prod loss term: the card's
+    kernels 1 and 1' (once each) against the CPU's plain versions, from
+    the same state.  The loss at rtol 1e-4; every leaf's gradient (read
+    from the first step's Adam moments, mu = 0.1 g) and the NDC-offset
+    gradient norms of the densification stats at atol 2e-3 of their max."""
+    from texgs_torch.config import Cfg
+    from texgs_torch.core.camera import with_ground_truth
+    from texgs_torch.kernels import raster as kr
+
+    cpu = _stage1_model("cpu")
+    card = _stage1_model(cuda_device, cpu.state_dict())
+    cam = orbit_cameras(1, radius=3.5, width=80, height=64)[0]
+    out = cpu.visual_step(0, 1, cam)
+    # ground truth off the render, so no L1 term sits at its kink
+    cam = with_ground_truth(cam, (out["image"] + 0.05).clamp(0, 1),
+                            0.8 * out["alpha"] + 0.1,
+                            normal=torch.roll(out["norm"], 1, dims=0))
+    loss_cfg = Cfg({"lambda_dssim": 0.2, "lambda_alpha": 1.0,
+                    "lambda_norm": 0.1, "lambda_norm_smooth": 0.1,
+                    "lambda_opacity_reg": 0.001})
+    before = (kr.raster_pairs.launches, kr.raster_pairs_backward.launches)
+    loss_card = card.compute_loss(2581, 7500, cam, None, loss_cfg)[0].item()
+    torch.cuda.synchronize()
+    assert (kr.raster_pairs.launches - before[0],
+            kr.raster_pairs_backward.launches - before[1]) == (1, 1)
+    loss_cpu = cpu.compute_loss(2581, 7500, cam, None, loss_cfg)[0].item()
+    np.testing.assert_allclose(loss_card, loss_cpu, rtol=1e-4)
+    want, got = cpu.state_dict(), card.state_dict()
+    pairs = [(want["adam"]["mu"][k] / 0.1, got["adam"]["mu"][k] / 0.1, k)
+             for k in want["adam"]["mu"]]
+    pairs.append((want["stats"]["xyz_gradient_accum"],
+                  got["stats"]["xyz_gradient_accum"], "ndc grad norms"))
+    for a, b, k in pairs:
+        assert np.isfinite(b).all(), k
+        denom = np.abs(a).max() + 1e-12
         np.testing.assert_allclose(b / denom, a / denom, atol=2e-3,
                                    err_msg=f"grad mismatch: {k}")

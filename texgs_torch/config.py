@@ -70,6 +70,13 @@ def load_config(path: str | os.PathLike) -> Cfg:
     return Cfg(raw or {})
 
 
+def dump_config(cfg: Cfg, path: str | os.PathLike) -> None:
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg.to_dict(), f, sort_keys=False)
+
+
 def in_range(iteration: int, iter_range: Any) -> bool:
     """Iteration gating with open ``None`` bounds; the interval is
     (start, end].  An absent or empty range means "always on"."""

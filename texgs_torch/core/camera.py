@@ -97,6 +97,18 @@ def with_ground_truth(camera: Camera, image, alpha_mask=None, normal=None,
                                normal=normal, depth=depth)
 
 
+def ground_truth(camera: Camera, device):
+    """(image, alpha) of a training view as float32 tensors on ``device``;
+    alpha is ones where the view has no mask."""
+    import torch
+
+    image = torch.as_tensor(camera.image, dtype=torch.float32, device=device)
+    if camera.alpha_mask is None:
+        return image, torch.ones((1,) + tuple(image.shape[1:]), device=device)
+    return image, torch.as_tensor(camera.alpha_mask, dtype=torch.float32,
+                                  device=device)
+
+
 def look_at_camera(eye: np.ndarray, target: np.ndarray, up: np.ndarray,
                    fovx: float, fovy: float, width: int, height: int,
                    **kwargs) -> Camera:

@@ -28,6 +28,38 @@ class GaussianState:
     rotation: torch.Tensor       # (N, 4) unnormalized quaternions (w, x, y, z)
     opacity: torch.Tensor        # (N, 1) logit opacities
 
+    @property
+    def n_alive(self) -> int:
+        return self.xyz.shape[0]
+
+    # --- activated views (texgs/core/state.py:55-68) ---------------------
+    def get_scaling(self) -> torch.Tensor:
+        return torch.exp(self.scaling)
+
+    def get_rotation(self) -> torch.Tensor:
+        return self.rotation / (
+            torch.linalg.norm(self.rotation, dim=-1, keepdim=True) + 1e-12)
+
+    def get_opacity(self) -> torch.Tensor:
+        return torch.sigmoid(self.opacity)
+
+    def get_features(self) -> torch.Tensor:
+        """(N, (deg+1)^2, 3) SH coefficients, DC first."""
+        return torch.cat([self.features_dc, self.features_rest], dim=1)
+
+    def params_dict(self) -> dict:
+        """The optimisable leaves under texgs's names (texgs/core/state.py:70)."""
+        return {"xyz": self.xyz, "f_dc": self.features_dc,
+                "f_rest": self.features_rest, "opacity": self.opacity,
+                "scaling": self.scaling, "rotation": self.rotation}
+
+    @classmethod
+    def from_params(cls, params: dict) -> "GaussianState":
+        """Inverse of ``params_dict``."""
+        return cls(xyz=params["xyz"], features_dc=params["f_dc"],
+                   features_rest=params["f_rest"], scaling=params["scaling"],
+                   rotation=params["rotation"], opacity=params["opacity"])
+
 
 def inverse_sigmoid(x):
     return torch.log(x / (1.0 - x))

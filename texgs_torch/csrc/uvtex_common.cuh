@@ -1,8 +1,10 @@
-// Device code shared by kernel A (uvtex_fused.cu) and its backward A'
-// (uvtex_fused_bwd.cu): constants, the staging of one pair's record and the
-// per-pixel alpha.  The backward replays the forward's alpha, T and stop
-// decisions, so both must round every operation of that chain the same
-// way: one definition here keeps them from drifting apart.
+// Device code shared by kernel A (uvtex_fused.cu), its backward A'
+// (uvtex_fused_bwd.cu), kernel 1 (raster.cu) and its backward 1'
+// (raster_bwd.cu): constants, the staging of one pair's record, the
+// per-pixel alpha and the transpose of the tile shift.  A backward replays
+// its forward's alpha, T and stop decisions, so all four must round every
+// operation of that chain the same way: one definition here keeps them
+// from drifting apart.
 
 #pragma once
 
@@ -50,16 +52,15 @@ __device__ __forceinline__ int feature_col(int f) {
   return f < N_FIXED_F ? COL_F0 + f : TABLE_FIXED + f - N_FIXED_F;
 }
 
-// Stage one pair's record: the Gaussian's exponent quadratic shifted from
-// its anchor tile into the tile at (tile_x, tile_y) (tile_raster.
-// shift_to_tile), its log-opacity, its NF blend channels and its uv row.
-// q receives [qxx, qyy, qxy, qx, qy, qc, logop].
+// Stage one pair's blend record: the Gaussian's exponent quadratic shifted
+// from its anchor tile into the tile at (tile_x, tile_y) (tile_raster.
+// shift_to_tile), its log-opacity and its NF blend channels.  q receives
+// [qxx, qyy, qxy, qx, qy, qc, logop].  Kernels 1 and 1' (raster*.cu) stage
+// this alone; A and A' add the uv row (stage_record).
 template <int NF>
-__device__ __forceinline__ void stage_record(const float* __restrict__ row,
-                                             const float* __restrict__ uv,
-                                             float tile_x, float tile_y,
-                                             float* q, float* feat,
-                                             float* uv_out) {
+__device__ __forceinline__ void stage_quad(const float* __restrict__ row,
+                                           float tile_x, float tile_y,
+                                           float* q, float* feat) {
   const float dtx = tile_x - row[COL_ANCHOR];
   const float dty = tile_y - row[COL_ANCHOR + 1];
   const float qxx = row[0], qyy = row[1], qxy = row[2];
@@ -77,8 +78,31 @@ __device__ __forceinline__ void stage_record(const float* __restrict__ row,
   q[6] = row[COL_LOGOP];
 #pragma unroll
   for (int f = 0; f < NF; ++f) feat[f] = row[feature_col(f)];
+}
+
+// stage_quad plus the pair's uv row (kernels A and A').
+template <int NF>
+__device__ __forceinline__ void stage_record(const float* __restrict__ row,
+                                             const float* __restrict__ uv,
+                                             float tile_x, float tile_y,
+                                             float* q, float* feat,
+                                             float* uv_out) {
+  stage_quad<NF>(row, tile_x, tile_y, q, feat);
 #pragma unroll
   for (int k = 0; k < UV_USED; ++k) uv_out[k] = uv[k];
+}
+
+// The transpose of shift_to_tile: the gradient dq of the tile-frame
+// quadratic [qxx, qyy, qxy, qx, qy, qc] taken back to the anchor frame,
+// for the shift (dtx, dty) = tile corner - anchor corner.
+__device__ __forceinline__ void unshift_grad(const float dq[6], float dtx,
+                                             float dty, float out[6]) {
+  out[0] = dq[0] + 2.f * dtx * dq[3] + dtx * dtx * dq[5];
+  out[1] = dq[1] + 2.f * dty * dq[4] + dty * dty * dq[5];
+  out[2] = dq[2] + dty * dq[3] + dtx * dq[4] + dtx * dty * dq[5];
+  out[3] = dq[3] + dtx * dq[5];
+  out[4] = dq[4] + dty * dq[5];
+  out[5] = dq[5];
 }
 
 // The exponent at tile-local pixel (x, y) (tile_raster.tile_power).

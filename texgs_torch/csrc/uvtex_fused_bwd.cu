@@ -244,14 +244,8 @@ __global__ void __launch_bounds__(PIX)
               dq[i] = a;
             }
             // transpose of shift_to_tile: tile-frame -> anchor-frame
-            const float dtx = s_shift[k][0], dty = s_shift[k][1];
-            const float anchor[6] = {
-                dq[0] + 2.f * dtx * dq[3] + dtx * dtx * dq[5],
-                dq[1] + 2.f * dty * dq[4] + dty * dty * dq[5],
-                dq[2] + dty * dq[3] + dtx * dq[4] + dtx * dty * dq[5],
-                dq[3] + dtx * dq[5],
-                dq[4] + dty * dq[5],
-                dq[5]};
+            float anchor[6];
+            unshift_grad(dq, s_shift[k][0], s_shift[k][1], anchor);
             val = anchor[c];
             col = c;
             out = d_table + static_cast<size_t>(g) * tab_cols;

@@ -35,6 +35,38 @@ def textured_sphere_point_cloud(n: int = 2048, radius: float = 1.0,
                            normals=v.astype(np.float32))
 
 
+def sphere_point_cloud(n: int = 2048, radius: float = 1.0,
+                       seed: int = 0) -> BasicPointCloud:
+    """Points on a sphere with smoothly varying colors."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    pts = v * radius
+    colors = 0.5 + 0.5 * np.stack([
+        np.sin(3 * pts[:, 0]) * np.cos(2 * pts[:, 1]),
+        np.sin(2 * pts[:, 1] + 1.0),
+        np.cos(3 * pts[:, 2]),
+    ], axis=1)
+    colors = np.clip(colors, 0.0, 1.0)
+    return BasicPointCloud(points=pts.astype(np.float32),
+                           colors=colors.astype(np.float32),
+                           normals=v.astype(np.float32))
+
+
+def blob_point_cloud(n: int = 4096, seed: int = 0) -> BasicPointCloud:
+    """A lumpy star-convex blob (sphere with low-frequency radial bumps)."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    r = 1.0 + 0.2 * np.sin(4 * v[:, 0]) * np.cos(3 * v[:, 1]) \
+        + 0.1 * np.sin(5 * v[:, 2])
+    pts = v * r[:, None]
+    colors = 0.5 + 0.4 * np.stack([v[:, 0], v[:, 1], v[:, 2]], axis=1)
+    return BasicPointCloud(points=pts.astype(np.float32),
+                           colors=np.clip(colors, 0, 1).astype(np.float32),
+                           normals=v.astype(np.float32))
+
+
 def orbit_cameras(n_cams: int = 8, radius: float = 4.0, fov_deg: float = 50.0,
                   width: int = 128, height: int = 128,
                   elevation_deg: float = 20.0,

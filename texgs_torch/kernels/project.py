@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from texgs_torch.utils.sh import eval_sh
 from texgs_torch.utils.transforms import (build_covariance_packed,
                                           rotation_channels)
 
@@ -35,12 +36,19 @@ def ndc2pix(v: torch.Tensor, size: int) -> torch.Tensor:
     return ((v + 1.0) * size - 1.0) * 0.5
 
 
-def project_points(xyz, full_proj, width: int, height: int):
-    """World points -> (pixel xy, clip w), row-vector convention."""
+def project_points(xyz, full_proj, width: int, height: int,
+                   ndc_offset=None):
+    """World points -> (pixel xy, clip w), row-vector convention.
+
+    ``ndc_offset`` is an optional (N, 2) zeros tensor added to the NDC
+    means: its gradient is the screen-space positional gradient the
+    densifier reads, in texgs's NDC units (pixel gradient * [W/2, H/2])."""
     ones = torch.ones_like(xyz[:, :1])
     p_hom = torch.cat([xyz, ones], dim=-1) @ full_proj  # (N, 4)
     p_w = 1.0 / (p_hom[:, 3] + 1e-7)
     ndc_xy = p_hom[:, :2] * p_w[:, None]
+    if ndc_offset is not None:
+        ndc_xy = ndc_xy + ndc_offset
     means2d = torch.stack([ndc2pix(ndc_xy[:, 0], width),
                            ndc2pix(ndc_xy[:, 1], height)], dim=-1)
     return means2d, p_hom[:, 3]
@@ -112,17 +120,21 @@ def flat_normals(scaling, rotation, xyz, campos) -> torch.Tensor:
 def project_gaussians(xyz, scaling, rotation, opacity, colors,
                       world_view, full_proj, campos,
                       width: int, height: int, tanfovx: float, tanfovy: float,
-                      scaling_modifier: float = 1.0) -> ProjectedGaussians:
+                      scaling_modifier: float = 1.0,
+                      ndc_offset=None) -> ProjectedGaussians:
     """Cull + project + conic/radius + normals.
 
     world_view/full_proj/campos are tensors on the Gaussians' device.
-    Culled Gaussians get radius 0 and opacity 0.
+    Culled Gaussians get radius 0 and opacity 0.  ``ndc_offset``: see
+    ``project_points``.  texgs's ``cov3d_precomp`` has no caller on the
+    ported paths and is not ported.
     """
     focal_x = width / (2.0 * tanfovx)
     focal_y = height / (2.0 * tanfovy)
 
     cov3d = build_covariance_packed(scaling, rotation, scaling_modifier)
-    means2d, depths = project_points(xyz, full_proj, width, height)
+    means2d, depths = project_points(xyz, full_proj, width, height,
+                                     ndc_offset)
     cov2d = compute_cov2d(xyz, cov3d, world_view, tanfovx, tanfovy,
                           focal_x, focal_y)
 
@@ -149,3 +161,14 @@ def project_gaussians(xyz, scaling, rotation, opacity, colors,
     return ProjectedGaussians(means2d=means2d, depths=depths, conics=conics,
                               radii=radii, colors=colors, opacities=op,
                               normals=normals)
+
+
+def sh_colors(features: torch.Tensor, xyz: torch.Tensor, campos: torch.Tensor,
+              active_sh_degree: int) -> torch.Tensor:
+    """Per-Gaussian view-dependent color from SH coefficients (N, K, 3)
+    (direction = campos -> center), clamped at 0 after the +0.5 offset, as
+    the CUDA preprocess does."""
+    dirs = xyz - campos[None, :]
+    dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
+    rgb = eval_sh(active_sh_degree, features.transpose(-1, -2), dirs) + 0.5
+    return torch.clamp(rgb, min=0.0)

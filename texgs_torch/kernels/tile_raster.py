@@ -9,8 +9,9 @@ global coordinates squared would not.
 
 ``chunk_weights``/``chunk_blend`` are the front-to-back weights of one
 depth-ordered chunk of pairs, with the 3DGS sequential-stop semantics
-reproduced exactly (texgs.kernels.reference).  They form the plain version
-of the blend half of the fused CUDA kernel (texgs_torch.kernels.uvtex_fused).
+reproduced exactly (texgs.kernels.reference).  They form the plain versions
+of kernel 1 (texgs_torch.kernels.raster, the stage-1/2 blend) and of the
+blend half of the fused stage-3 kernel (texgs_torch.kernels.uvtex_fused).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from texgs_torch.kernels.binning import grid_shape
+from texgs_torch.kernels.binning import build_pairs, grid_shape
 from texgs_torch.kernels.project import ProjectedGaussians
 from texgs_torch.kernels.reference import (ALPHA_CLAMP, MIN_ALPHA, T_STOP,
                                            TILE, RasterOutput)
@@ -179,3 +180,22 @@ def assemble_image(tiles_out: torch.Tensor, t_final: torch.Tensor,
     nrm = img[4:7]
     extra = img[7:7 + n_extra] if n_extra else None
     return RasterOutput(image=rgb, depth=dep, norm=nrm, alpha=acc, extra=extra)
+
+
+def rasterize_tiled(proj: ProjectedGaussians, height: int, width: int,
+                    bg: torch.Tensor,
+                    normalize_depth: bool = True) -> RasterOutput:
+    """Tile-binned rasterization of the rgb, depth and normal channels
+    (texgs ``rasterize_tiled``, :278): ``build_pairs`` ->
+    ``build_gauss_table`` -> kernel 1 (``raster_pairs``, differentiable in
+    ``proj``) -> ``assemble_image``.  The port has one path, so texgs's
+    ``backend`` and ``chunk`` have no counterpart, and it keeps every pair
+    (texgs caps them at max(4N, 2^14) and flags an overflow)."""
+    from texgs_torch.kernels.raster import raster_pairs
+
+    pairs = build_pairs(proj.means2d, proj.depths, proj.radii, height, width)
+    tiles_out, t_final, _ = raster_pairs(build_gauss_table(proj), pairs,
+                                         grid_shape(height, width)[1])
+    out = assemble_image(tiles_out, t_final, height, width, bg, 0,
+                         normalize_depth)
+    return out._replace(n_pairs=pairs.n_pairs, overflowed=pairs.overflowed)

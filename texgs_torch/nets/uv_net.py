@@ -8,8 +8,9 @@ texgs/nets/uv_net.py).
 
 The UVNet is MLP-only: the stage-3 path applies it with its Jacobian
 through a hand-rolled forward-mode pass, which texgs supports for the
-MLP-only net alone.  The InvUVNet of the stage-3 inverse-consistency loss
-may carry a hash grid (nets/hashgrid.py).
+MLP-only net alone.  The InvUVNet may carry a hash grid (nets/hashgrid.py).
+``sample_sphere`` and ``patch_sample_sphere`` draw stage 2's sphere samples
+from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -156,3 +157,19 @@ def _mlp_with_tangents(mlp: MLP, h: torch.Tensor, tang: torch.Tensor):
             tang = tang * (h > 0).to(h.dtype).detach()[None]
             h = torch.relu(h)
     return h, tang
+
+
+def sample_sphere(generator: torch.Generator, n: int) -> torch.Tensor:
+    """(n, 3) uniform unit-sphere samples, on the generator's device."""
+    p = torch.randn((n, 3), generator=generator, device=generator.device)
+    return p / (torch.linalg.norm(p, dim=-1, keepdim=True) + 1e-12)
+
+
+def patch_sample_sphere(generator: torch.Generator, n: int,
+                        patch_scale: int) -> torch.Tensor:
+    """Directional-cap samples: of n * patch_scale sphere samples, the n
+    most aligned with a random direction."""
+    direction = torch.randn(3, generator=generator, device=generator.device)
+    direction = direction / (torch.linalg.norm(direction) + 1e-12)
+    points = sample_sphere(generator, n * patch_scale)
+    return points[torch.topk(points @ direction, n).indices]

@@ -36,13 +36,15 @@ import torch
 
 from texgs_torch import losses
 from texgs_torch.config import Cfg, in_range
-from texgs_torch.core.camera import Camera
+from texgs_torch.core.camera import Camera, ground_truth
 from texgs_torch.kernels.cubemap import (cross_to_faces, cubemap_to_latlong,
                                          faces_to_cross)
 from texgs_torch.nets.uv_net import InvUVNet, UVNet
 from texgs_torch.render.uv_tex_render import uv_tex_render
 from texgs_torch.train import optim
-from texgs_torch.train.uv_map_gaussian3d import depth2world
+from texgs_torch.train.uv_map_gaussian3d import (inverse_world_points,
+                                                  masked_cycle_loss,
+                                                  net_leaves)
 from texgs_torch.utils.schedules import expon_lr, warmup_multistep
 from texgs_torch.utils.sh import C0
 
@@ -116,19 +118,14 @@ def stage3_loss_terms(image, depth, norm, alpha, image_ns, camera: Camera,
                                           + lambdas["dssim"] * lssim)
         stats.update(Ll1_nosh=ll1, Lssim_nosh=lssim)
     if use_inverse:
-        world = depth2world(depth[0].detach(), camera.full_proj, camera.zfar,
-                            camera.znear).reshape(-1, 3)
-        wmask = (alpha.detach().reshape(-1) > 0.5).to(torch.float32)
-        if n_inv_points and n_inv_points < world.shape[0]:
-            score = torch.rand(world.shape[0], generator=generator,
-                               device=generator.device).to(dev)
-            score = torch.where(wmask > 0, score, -1.0)
-            sel = torch.topk(score, n_inv_points).indices
-            world, wmask = world[sel], wmask[sel]
-        uv = uv_net(world, geo_emb)
-        inv = inv_uv_net(uv, geo_emb)
-        err = ((world - inv) ** 2).sum(-1)
-        linv = (err * wmask).sum() / (wmask.sum() + 1e-6)
+        n_px = depth.shape[-2] * depth.shape[-1]
+        score = (torch.rand(n_px, generator=generator,
+                            device=generator.device).to(dev)
+                 if n_inv_points and n_inv_points < n_px else None)
+        world, wmask = inverse_world_points(depth, alpha, camera, score,
+                                            n_inv_points)
+        linv = masked_cycle_loss(world, wmask,
+                                 inv_uv_net(uv_net(world, geo_emb), geo_emb))
         loss = loss + lambdas["inverse"] * linv
         stats["Linv"] = linv
     stats["total_loss"] = loss
@@ -224,19 +221,7 @@ class TextureGaussian3D:
         return {k: self.gauss[k] for k in GAUSS_KEYS if k in self.gauss}
 
     def _uv_leaves(self) -> dict:
-        nets = {"uv_net": self.uv_net}
-        if self.inv_uv_net is not None:
-            nets["inv_uv_net"] = self.inv_uv_net
-        out = {}
-        for name, net in nets.items():
-            if getattr(net, "hashgrid", None) is not None:
-                out[f"{name}.hashgrid.table"] = net.hashgrid.table
-            for part in ("pre_mlp", "mlp"):
-                for i, lin in enumerate(getattr(net, part).layers):
-                    out[f"{name}.{part}.w.{i}"] = lin.weight
-                    out[f"{name}.{part}.b.{i}"] = lin.bias
-        out["geo_emb"] = self.geo_emb
-        return out
+        return net_leaves(self.uv_net, self.inv_uv_net, self.geo_emb)
 
     def _tex_leaves(self) -> dict:
         return {"texture": self.texture}
@@ -330,13 +315,7 @@ class TextureGaussian3D:
                 p.requires_grad_(True)
                 p.grad = None
 
-        dev = self.device
-        gt_image = torch.as_tensor(viewpoint.image, dtype=torch.float32,
-                                   device=dev)
-        gt_alpha = (torch.ones((1,) + tuple(gt_image.shape[1:]), device=dev)
-                    if viewpoint.alpha_mask is None else
-                    torch.as_tensor(viewpoint.alpha_mask, dtype=torch.float32,
-                                    device=dev))
+        gt_image, gt_alpha = ground_truth(viewpoint, self.device)
         with torch.enable_grad():
             out = self._render(viewpoint, with_no_sh=flags[7])
             loss, stats = stage3_loss_terms(

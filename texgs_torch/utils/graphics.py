@@ -54,3 +54,12 @@ def get_projection_matrix(znear: float, zfar: float,
     P[2, 2] = zfar / (zfar - znear)
     P[2, 3] = -(zfar * znear) / (zfar - znear)
     return P
+
+
+def get_nerf_pp_norm(cam_centers: np.ndarray) -> dict:
+    """NeRF++-style scene normalisation: (N, 3) camera centres -> the
+    translate vector and the radius (1.1 x the largest distance from their
+    centroid), which becomes ``cameras_extent``."""
+    center = cam_centers.mean(axis=0, keepdims=True)
+    dist = np.linalg.norm(cam_centers - center, axis=1)
+    return {"translate": -center[0], "radius": float(dist.max()) * 1.1}
