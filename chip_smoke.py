@@ -65,7 +65,27 @@ one card.  Phases, in order; any failure exits non-zero:
  15. driver -- driver.train through the port's command line on
                 configs/synthetic_smoke.yaml cut to 150 iterations
                 (densification at 100), then configs/synthetic_uv_map.yaml
-                for 50 iterations from its checkpoint; each stage's test PSNR.
+                for 50 iterations from its checkpoint; each stage's test PSNR;
+ 16. two-kernel render -- the model of phase 3 with model_cfg.backend
+                pallas (kernel 1 blends, kernel 2 writes the M-lists):
+                kernels 2 and 1 (F = 10) against their plain versions on
+                view 0's arguments; the 3 views, the chessboard retexture and
+                the 3 views again through visual_step, each image held
+                against the fused path's of phase 5, with kernels 1, 2 and B
+                launched once a view and A never;
+ 17. two-kernel training -- 1 + STEPS steps of phase 7's joint phase on
+                that path: finite, the loss falling, kernels 1, 1', 2, 2',
+                B, B' and the hash gather once a step; the capture step's
+                table and uv-row gradients (1' + 2') against kernel A''s on
+                the same cotangents, by column group; 2' against its plain
+                version; times of 2, 2' and 1 at F = 10 with their plain
+                versions and bounds, the two-kernel render and step beside
+                the fused ones, and one step under torch.profiler;
+ 18. tools -- that model saved with io/checkpoint; extract_texture,
+                evaluate and retexture through their main() on a
+                synthetic://sphere scene of 600x600 views, and the viewer
+                as a process of its own, asked for one /frame over HTTP:
+                finite metrics, every PNG read back, one frame.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -199,6 +219,10 @@ STAGE2_LOSS_CFG = {"lambda_inverse": 1.0, "inverse_range": [0, None],
                    "lambda_inverse2": 1.0, "inverse_range2": [0, None]}
 DRIVER_S1_ITERS = 150
 DRIVER_S2_ITERS = 50
+# the tools phase's synthetic://sphere scene
+TOOLS_POINTS = 50_000
+TOOLS_VIEWS = 8
+TOOLS_SIZE = 600
 # the scene's camera extent, texgs's spatial_lr_scale: the orbit radius
 # times the 1.1 of its scene normalisation
 SPATIAL_LR_SCALE = 3.5 * 1.1
@@ -486,23 +510,23 @@ def check_scaled(torch, name, got, want, rel_atol, rtol, max_off=0,
     return max_err
 
 
-def check_a_backward(torch, got, want):
-    """Kernel A' against its plain version, per column group (quad,
-    channels, uv rows): at most MAX_OFF_GAUSSIANS Gaussians beyond atol
-    1e-3 of the group's max |plain| + rtol 1e-3 (kernel A's threshold flips
-    move whole entries, and the atomics sum in a varying order).  The
-    columns the kernel leaves at zero must be zero.  Returns the max abs
-    error."""
+def check_a_backward(torch, got, want, label="A'"):
+    """Kernel A' (or 1' + 2', under `label`) against `want`, per column
+    group (quad, channels, uv rows): at most MAX_OFF_GAUSSIANS Gaussians
+    beyond atol 1e-3 of the group's max |want| + rtol 1e-3 (kernel A's
+    threshold flips move whole entries, and the atomics sum in a varying
+    order).  The columns the kernels leave at zero must be zero.  Returns
+    the max abs error."""
     (d_table, d_uv), (d_table_w, d_uv_w) = got, want
     groups = {"quad": (d_table[:, :6], d_table_w[:, :6]),
               "channels": (torch.cat([d_table[:, 7:14], d_table[:, 16:]], 1),
                            torch.cat([d_table_w[:, 7:14], d_table_w[:, 16:]], 1)),
               "uv rows": (d_uv[:, :12], d_uv_w[:, :12])}
-    max_err = max(check_scaled(torch, f"A' {name}", g, w, 1e-3, 1e-3,
+    max_err = max(check_scaled(torch, f"{label} {name}", g, w, 1e-3, 1e-3,
                                MAX_OFF_GAUSSIANS, rows=True)
                   for name, (g, w) in groups.items())
     if d_table[:, [6, 14, 15]].any() or d_uv[:, 12:].any():
-        fail("kernel A' wrote gradient into a column it must leave at zero")
+        fail(f"{label} wrote gradient into a column it must leave at zero")
     return max_err
 
 
@@ -515,19 +539,29 @@ def restricted_tiles(pairs, keep):
         tile_counts=torch.where(keep, pairs.tile_counts, 0))
 
 
-def train_phases(torch, model, cams, gt_views):
-    """Phases 7-9 (see the module docstring).  Returns the JSON entries
-    of kernels A', B' and the hash gather."""
+def plain_backward_tiles(torch, pairs, device, chunk):
+    """The tiles on which a plain M-list backward (autograd through
+    uvtex_fused.mlist_scan, about 24 (tiles, 256, chunk) f32 intermediates
+    per chunk) fits in the card's free memory: all, or every fourth.
+    Returns (bool mask over tiles, the note to log)."""
+    n_tiles = pairs.tile_counts.numel()
+    n_chunks = -(-int(pairs.tile_counts.max()) // chunk)
+    need = n_chunks * 24 * n_tiles * 256 * chunk * 4
+    free = torch.cuda.mem_get_info()[0]
+    keep = torch.ones(n_tiles, dtype=torch.bool, device=device)
+    if need > 0.8 * free:
+        keep = torch.arange(n_tiles, device=device) % 4 == 0
+    return keep, (f"{int(keep.sum())} of {n_tiles} tiles (plain backward "
+                  f"needs about {need / 1e9:.1f} GB, {free / 1e9:.1f} GB free)")
+
+
+def stage3_stepper(model, cams, gt_views):
+    """Sets `model` up for phase 7's joint phase on `cams` with the ground
+    truth `gt_views` (image, alpha as the mask, normals) and returns
+    step(iteration) -> (loss, stats): compute_loss + optimize_step."""
     from texgs_torch.config import Cfg
     from texgs_torch.core.camera import with_ground_truth
-    from texgs_torch.kernels import tex_term as kt
-    from texgs_torch.kernels import uvtex_fused as kf
-    from texgs_torch.kernels.cubemap import sample_cubemap
-    from texgs_torch.nets import hash_gather as kh
-    from texgs_torch.nets import hashgrid
-    from texgs_torch.train.optim import flatten_tree
 
-    # ------------------------------------------------------------ 7. train
     train_cams = [with_ground_truth(c, v["image"], v["alpha"], normal=v["norm"])
                   for c, v in zip(cams, gt_views)]
     loss_cfg, train_cfg = Cfg(LOSS_CFG), Cfg(TRAIN_CFG)
@@ -540,7 +574,60 @@ def train_phases(torch, model, cams, gt_views):
                                             None, loss_cfg)
         model.optimize_step(it, 10000, train_cfg, {})
         return loss, stats
+    return step
 
+
+def check_train_run(torch, what, model, step, counters, expect):
+    """STEPS steps after the capture step: every loss term finite, every
+    kernel of `counters` launched `expect[name]` times, every parameter
+    finite and the mean loss of the last 5 steps below that of the first
+    5.  Returns the launch counts."""
+    from texgs_torch.train.optim import flatten_tree
+
+    for fn in counters.values():
+        fn.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for it in range(FIRST_ITER + 1, FIRST_ITER + 1 + STEPS):
+        loss, stats = step(it)
+        losses.append(loss.item())
+        if not all(math.isfinite(v.item()) for v in stats.values()):
+            fail(f"{what} step {it}: a loss term is not finite: {stats}")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"[{what}] {STEPS} steps ({FIRST_ITER + 1}..{FIRST_ITER + STEPS}) in "
+        f"{train_s:.3f} s; launches {launches}; n_pairs of the last step "
+        f"{int(stats['n_pairs'])}")
+    log("  total loss by step: " + ", ".join(f"{v:.5f}" for v in losses))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"  mean loss of the first 5 steps {first:.5f}, of the last 5 "
+        f"{last:.5f} ({(last - first) / first:+.2%})")
+    for name, n in launches.items():
+        if n != expect[name]:
+            fail(f"kernel {name} launched {n} times in {STEPS} {what} steps, "
+                 f"expected {expect[name]}")
+    sd = model.state_dict()
+    for part in ("params", "net_state"):
+        for name, a in flatten_tree(sd[part]).items():
+            if not np.isfinite(a).all():
+                fail(f"parameter {part}.{name} is not finite after {what}")
+    if not last < first:
+        fail(f"the {what} loss did not fall")
+    return launches
+
+
+def train_phases(torch, model, cams, gt_views):
+    """Phases 7-9 (see the module docstring).  Returns (the JSON entries of
+    kernels A', B' and the hash gather, the step's median ms)."""
+    from texgs_torch.kernels import tex_term as kt
+    from texgs_torch.kernels import uvtex_fused as kf
+    from texgs_torch.kernels.cubemap import sample_cubemap
+    from texgs_torch.nets import hash_gather as kh
+    from texgs_torch.nets import hashgrid
+
+    # ------------------------------------------------------------ 7. train
+    step = stage3_stepper(model, cams, gt_views)
     t0 = time.perf_counter()
     seen = {}
     with recording(kf, "fused_pairs_backward", seen), \
@@ -563,35 +650,8 @@ def train_phases(torch, model, cams, gt_views):
                 "uvtex_fused_bwd": kf.fused_pairs_backward,
                 "tex_term_bwd": kt.tex_term_backward,
                 "hash_gather": kh.hash_gather}
-    for fn in counters.values():
-        fn.launches = 0
-    losses = []
-    t0 = time.perf_counter()
-    for it in range(FIRST_ITER + 1, FIRST_ITER + 1 + STEPS):
-        loss, stats = step(it)
-        losses.append(loss.item())
-        if not all(math.isfinite(v.item()) for v in stats.values()):
-            fail(f"step {it}: a loss term is not finite: {stats}")
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    log(f"[train] {STEPS} steps ({FIRST_ITER + 1}..{FIRST_ITER + STEPS}) in "
-        f"{train_s:.3f} s; launches {launches}; n_pairs of the last step "
-        f"{int(stats['n_pairs'])}")
-    log("  total loss by step: " + ", ".join(f"{v:.5f}" for v in losses))
-    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    log(f"  mean loss of the first 5 steps {first:.5f}, of the last 5 "
-        f"{last:.5f} ({(last - first) / first:+.2%})")
-    for name, n in launches.items():
-        if n != STEPS:
-            fail(f"kernel {name} launched {n} times in {STEPS} training steps")
-    sd = model.state_dict()
-    for part in ("params", "net_state"):
-        for name, a in flatten_tree(sd[part]).items():
-            if not np.isfinite(a).all():
-                fail(f"parameter {part}.{name} is not finite after training")
-    if not last < first:
-        fail("the training loss did not fall")
+    launches = check_train_run(torch, "train", model, step, counters,
+                               dict.fromkeys(counters, STEPS))
 
     # --------------------------------------------------- 8. train kernels
     a_args = seen["fused_pairs_backward"]
@@ -603,19 +663,11 @@ def train_phases(torch, model, cams, gt_views):
     log("[train kernels] each against its plain version, on the arguments "
         f"the step-{FIRST_ITER} backward gave it")
     n_tiles = pairs.tile_counts.numel()
-    n_chunks = -(-int(pairs.tile_counts.max()) // kf.CHUNK)
-    # the plain backward keeps about 24 (tiles, 256, CHUNK) f32
-    # intermediates per chunk for autograd
-    need = n_chunks * 24 * n_tiles * 256 * kf.CHUNK * 4
-    free = torch.cuda.mem_get_info()[0]
-    keep = torch.ones(n_tiles, dtype=torch.bool, device=table.device)
-    if need > 0.8 * free:
-        keep = torch.arange(n_tiles, device=table.device) % 4 == 0
+    keep, note = plain_backward_tiles(torch, pairs, table.device, kf.CHUNK)
     a_sub = (table, uv_rows, restricted_tiles(pairs, keep), rays, gx, m)
     cots = [torch.where(keep.view(-1, *[1] * (c.dim() - 1)), c, 0.0).contiguous()
             for c in (g_blend, g_t_final, g_mlist)]
-    log(f"  A' is checked on {int(keep.sum())} of {n_tiles} tiles (plain "
-        f"backward needs about {need / 1e9:.1f} GB, {free / 1e9:.1f} GB free)")
+    log(f"  A' is checked on {note}")
     with torch.no_grad():
         fwd_sub = kf.fused_pairs_forward(*a_sub)
         got_a = kf.fused_pairs_backward(*a_sub, *fwd_sub[:3], *cots)
@@ -725,7 +777,7 @@ def train_phases(torch, model, cams, gt_views):
         entry("hash_gather", "texgs_torch/csrc/hash_gather.cu",
               "texgs/nets/pallas_hashgrid.py:63", launches["hash_gather"],
               k_ms, k_plain_ms, k_bound, k_by, err_k, k_lib_ms),
-    ]
+    ], step_ms
 
 
 def check_kernel_1(torch, got, want):
@@ -1087,6 +1139,365 @@ def driver_phase(work_dir, device):
     return psnr1, psnr2
 
 
+def check_kernel_2(torch, got, want):
+    """Kernel 2 against its plain version, pixel by pixel, as check_kernel_a
+    holds kernel A's M-lists: a pixel is off if a slot value lies beyond
+    atol 1e-5 + rtol 1e-4 (a T-ulp stop flip adds or drops its last slot);
+    at most MAX_OFF_PIXELS pixels may be off, and no slot weight anywhere
+    by more than 0.05.  Returns the max abs error."""
+    off = ((got - want).abs() > 1e-5 + 1e-4 * want.abs()).flatten(2).any(-1)
+    errs = {"slot w": (got[..., 0] - want[..., 0]).abs().max().item(),
+            "slot uv": (got[..., 1:] - want[..., 1:]).abs().max().item()}
+    n_off = int(off.sum())
+    log(f"  2: {n_off} of {off.numel()} pixels off (allowed {MAX_OFF_PIXELS}); "
+        "max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; {int((got[..., 0] != 0).sum())} live slots")
+    if not (n_off <= MAX_OFF_PIXELS and errs["slot w"] <= 0.05
+            and all(math.isfinite(v) for v in errs.values())):
+        fail("kernel 2 disagrees with its plain version")
+    return max(errs.values())
+
+
+def mlist_evaluated(torch, table, pairs, rays, gx, m):
+    """The (pixel, pair) entries kernels 2 and 2' evaluate: each pixel's
+    pairs up to its m-th contributor or its T stop, whichever comes first,
+    counted chunk by chunk with the plain scan's rules."""
+    from texgs_torch.kernels.tile_raster import (NEG_INF, ROW_LOGOP,
+                                                 chunk_weights, shift_to_tile,
+                                                 tile_power)
+    from texgs_torch.kernels.uvtex_fused import CHUNK, _tile_rays
+
+    n_tiles = pairs.tile_counts.shape[0]
+    tile_x, tile_y, _ = _tile_rays(rays, n_tiles, gx, table.device)
+    t_buf = torch.ones((n_tiles, 256), device=table.device)
+    done = torch.zeros_like(t_buf, dtype=torch.bool)
+    count = torch.zeros_like(t_buf, dtype=torch.int64)
+    counts = pairs.tile_counts.to(torch.int64)
+    starts = pairs.tile_start.to(torch.int64)
+    total = 0
+    for c0 in range(0, int(counts.max()) if n_tiles else 0, CHUNK):
+        k = torch.arange(c0, c0 + CHUNK, device=table.device)
+        live = k[None, :] < counts[:, None]
+        idx = torch.clamp(starts[:, None] + k[None, :],
+                          max=pairs.pair_gauss.shape[0] - 1)
+        rows = table[pairs.pair_gauss[idx].to(torch.int64)]
+        quad = shift_to_tile(rows, tile_x[:, None], tile_y[:, None])
+        quad[..., 5] = torch.where(live, quad[..., 5], NEG_INF)
+        w, t_out, done_m, fail = chunk_weights(
+            tile_power(quad), rows[..., ROW_LOGOP][:, None, :], t_buf, done)
+        acc = (w > 0).to(torch.int64)
+        rank = count[..., None] + torch.cumsum(acc, -1) - acc
+        fail_i = fail.to(torch.int64)
+        stopped = done[..., None] | (torch.cumsum(fail_i, -1) - fail_i > 0)
+        total += int((live[:, None, :] & ~stopped & (rank < m)).sum())
+        count += acc.sum(-1)
+        t_buf, done = t_out, done_m[..., -1]
+    return total
+
+
+def two_kernel_phases(torch, device, sd0, cams, views, retextured, chess,
+                      fused_render_ms, fused_step_ms):
+    """Phases 16 and 17 (see the module docstring): `sd0` is the state of
+    phase 3's model, `views` and `retextured` the fused path's images of
+    phase 5.  Returns (the trained two-kernel model, the JSON entries of
+    kernels 2 and 2')."""
+    from texgs_torch.config import Cfg
+    from texgs_torch.kernels import raster as kr
+    from texgs_torch.kernels import tex_term as kt
+    from texgs_torch.kernels import uvtex_fused as kf
+    from texgs_torch.kernels import uvtex_mlist as km
+    from texgs_torch.kernels.tile_raster import N_FIXED_F, TABLE_FIXED
+    from texgs_torch.nets import hash_gather as kh
+    from texgs_torch.train.texture_gaussian3d import from_jax_state
+
+    # ------------------------------------------------ 16. two-kernel render
+    model = from_jax_state(sd0, Cfg(dict(MODEL_CFG, backend="pallas")),
+                           device=device)
+    model.bind_train_cfg(None, MODEL_CFG["background"])
+    seen = {}
+    with recording(kr, "raster_pairs", seen) as rec_1, \
+            recording(km, "mlist_pairs", seen) as rec_2, \
+            recording(kt, "tex_term", seen) as rec_b:
+        model.render(cams[0])
+    if (set(seen) != {"raster_pairs", "mlist_pairs", "tex_term"}
+            or (rec_1.launches, rec_2.launches, rec_b.launches) != (1, 1, 1)):
+        fail(f"the two-kernel render called {sorted(seen)}, launches "
+             f"{rec_1.launches}, {rec_2.launches} and {rec_b.launches}")
+    table, pairs, gx = seen["raster_pairs"]
+    m_args = seen["mlist_pairs"]
+    uv_rows, m = m_args[1], m_args[5]
+    n_f = table.shape[1] - TABLE_FIXED + N_FIXED_F
+    log(f"[two-kernel] view 0: {int(pairs.n_pairs)} pairs over "
+        f"{pairs.tile_counts.numel()} tiles, F = {n_f}, m = {m}; kernels 1 "
+        "and 2 against their plain versions on the arguments it gave them")
+    with torch.no_grad():
+        got_1 = kr.raster_pairs_forward(table, pairs, gx)
+        err_1 = check_kernel_1(torch, got_1, kr.raster_scan(table, pairs, gx))
+        got_2 = km.mlist_pairs_forward(*m_args)
+        err_2 = check_kernel_2(torch, got_2, km.mlist_only_scan(*m_args))
+
+    counters = {"raster": kr.raster_pairs, "uvtex_mlist": km.mlist_pairs,
+                "tex_term": kt.tex_term, "uvtex_fused": kf.fused_pairs}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    two = [model.visual_step(0, 1, c) for c in cams]
+    model.change_texture(chess, mode=0)
+    two += [model.visual_step(0, 1, c) for c in cams]
+    torch.cuda.synchronize()
+    main_launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"[two-kernel main] {2 * N_VIEWS} views (3 + 3 retextured) in "
+        f"{time.perf_counter() - t0:.3f} s; launches {main_launches}")
+    expect = {"raster": 2 * N_VIEWS, "uvtex_mlist": 2 * N_VIEWS,
+              "tex_term": 2 * N_VIEWS, "uvtex_fused": 0}
+    if main_launches != expect:
+        fail(f"the two-kernel views launched {main_launches}, expected {expect}")
+    for i, (got, want) in enumerate(zip(two, views + retextured)):
+        for k in ("image", "image_no_sh", "depth", "norm", "alpha"):
+            if not bool(torch.isfinite(got[k]).all()):
+                fail(f"two-kernel view {i}: {k} is not finite")
+        check_close(torch, f"two-kernel image {i} vs the fused path's",
+                    got["image"], want["image"], atol=1e-4, rtol=1e-4,
+                    max_off=3 * MAX_OFF_PIXELS, hard=0.05)
+    del two
+
+    with torch.no_grad():
+        render_ms = median_ms(torch, lambda: model.render(cams[0]))
+        ms_1 = median_ms(torch, lambda: kr.raster_pairs_forward(table, pairs, gx))
+        plain_1 = median_ms(torch, lambda: kr.raster_scan(table, pairs, gx),
+                            reps=3)
+        ms_2 = median_ms(torch, lambda: km.mlist_pairs_forward(*m_args))
+        plain_2 = median_ms(torch, lambda: km.mlist_only_scan(*m_args), reps=3)
+        eval_2 = mlist_evaluated(torch, table, pairs, m_args[3], gx, m)
+    n_eval = int(got_1[2].sum())
+    live = int((got_2[..., 0] != 0).sum())
+    pair_bytes = nbytes(pairs.pair_gauss, pairs.tile_start, pairs.tile_end)
+    # kernel 1 reads the table and the pair list and writes the channels,
+    # T_final and n_eval; kernel 2 reads the table, the uv rows and the
+    # pair list and writes the M-lists, evaluating each pixel's pairs up to
+    # its m-th contributor or its stop
+    bytes_1 = nbytes(table) + pair_bytes + nbytes(*got_1)
+    bound_1, by_1 = bound(bytes_1, n_eval * (OPS_A_EVAL + 2 * n_f))
+    bytes_2 = nbytes(table, uv_rows, got_2) + pair_bytes
+    bound_2, by_2 = bound(bytes_2, eval_2 * OPS_A_EVAL + live * OPS_A_SLOT)
+    log(f"[time] two-kernel render of view 0: {render_ms:.3f} ms (median of "
+        f"{REPS}; the fused path's {fused_render_ms:.3f} ms)")
+    log(f"[time] kernel 1 raster at F = {n_f}: {ms_1:.4f} ms, plain "
+        f"{plain_1:.3f} ms, bound {bound_1:.4f} ms ({by_1}: "
+        f"{bytes_1 / 1e6:.1f} MB, {n_eval} evaluated pairs)")
+    log(f"[time] kernel 2 uvtex_mlist: {ms_2:.4f} ms, plain {plain_2:.3f} ms, "
+        f"bound {bound_2:.4f} ms ({by_2}: {bytes_2 / 1e6:.1f} MB, {eval_2} "
+        f"evaluated pairs, {live} live slots)")
+
+    # ---------------------------------------------- 17. two-kernel training
+    step = stage3_stepper(model, cams, views)
+    seen = {}
+    t0 = time.perf_counter()
+    with recording(kr, "raster_pairs_backward", seen), \
+            recording(km, "mlist_pairs_backward", seen):
+        loss, stats = step(FIRST_ITER)
+    torch.cuda.synchronize()
+    if set(seen) != {"raster_pairs_backward", "mlist_pairs_backward"}:
+        fail(f"a two-kernel training step called {sorted(seen)}")
+    log(f"[two-kernel train] capture step {FIRST_ITER}: loss "
+        f"{loss.item():.5f}, {time.perf_counter() - t0:.2f} s")
+    counters = {"raster": kr.raster_pairs,
+                "raster_bwd": kr.raster_pairs_backward,
+                "uvtex_mlist": km.mlist_pairs,
+                "uvtex_mlist_bwd": km.mlist_pairs_backward,
+                "tex_term": kt.tex_term, "tex_term_bwd": kt.tex_term_backward,
+                "hash_gather": kh.hash_gather, "uvtex_fused": kf.fused_pairs,
+                "uvtex_fused_bwd": kf.fused_pairs_backward}
+    expect = {name: 0 if name.startswith("uvtex_fused") else STEPS
+              for name in counters}
+    train_launches = check_train_run(torch, "two-kernel train", model, step,
+                                     counters, expect)
+
+    table, pairs, gx, blend, t_final, g_blend, g_t_final = \
+        seen["raster_pairs_backward"]
+    b_args = seen["mlist_pairs_backward"]
+    uv_rows, rays, m, mlist, g_mlist = b_args[1], b_args[3], b_args[5], \
+        b_args[6], b_args[7]
+    log("[two-kernel kernels] on the arguments the step-"
+        f"{FIRST_ITER} backward gave kernels 1' and 2'")
+    with torch.no_grad():
+        d_1 = kr.raster_pairs_backward(table, pairs, gx, blend, t_final,
+                                       g_blend, g_t_final)
+        d_2 = km.mlist_pairs_backward(*b_args)
+        fwd_a = kf.fused_pairs_forward(table, uv_rows, pairs, rays, gx, m)
+        want_a = kf.fused_pairs_backward(table, uv_rows, pairs, rays, gx, m,
+                                         *fwd_a[:3], g_blend, g_t_final,
+                                         g_mlist)
+        err_ab = check_a_backward(torch, (d_1 + d_2[0], d_2[1]), want_a,
+                                  label="1' + 2' vs A'")
+        del fwd_a, want_a, d_1
+
+        keep, note = plain_backward_tiles(torch, pairs, table.device, kf.CHUNK)
+        sub = (table, uv_rows, restricted_tiles(pairs, keep), rays, gx, m)
+        g_sub = torch.where(keep.view(-1, 1, 1, 1), g_mlist, 0.0).contiguous()
+        log(f"  2' is checked on {note}")
+        got_2b = km.mlist_pairs_backward(*sub, km.mlist_pairs_forward(*sub),
+                                         g_sub)
+        want_2b = km.mlist_only_scan_vjp(*sub, g_sub)
+        err_2b = max(
+            check_scaled(torch, "2' quad", got_2b[0][:, :6], want_2b[0][:, :6],
+                         1e-3, 1e-3, MAX_OFF_GAUSSIANS, rows=True),
+            check_scaled(torch, "2' uv rows", got_2b[1][:, :12],
+                         want_2b[1][:, :12], 1e-3, 1e-3, MAX_OFF_GAUSSIANS,
+                         rows=True))
+        if got_2b[0][:, 6:].any() or got_2b[1][:, 12:].any():
+            fail("kernel 2' wrote gradient into a column it must leave at zero")
+        del want_2b
+
+    it = [FIRST_ITER + STEPS + 1]
+
+    def timed_step():
+        step(it[0])
+        it[0] += 1
+
+    step_ms = median_ms(torch, timed_step)
+    log(f"[time] two-kernel training step: {step_ms:.3f} ms (median of {REPS}; "
+        f"the fused path's {fused_step_ms:.3f} ms)")
+    with torch.no_grad():
+        ms_2b = median_ms(torch, lambda: km.mlist_pairs_backward(*b_args))
+        plain_2b = median_ms(torch, lambda: km.mlist_only_scan_vjp(*sub, g_sub),
+                             reps=3)
+        eval_2b = mlist_evaluated(torch, table, pairs, rays, gx, m)
+    live = int((mlist[..., 0] != 0).sum())
+    # what 2' must move: the table, uv rows and pair list, every slot's w
+    # (4 B), the live slots' cotangents (16 B) and the two gradients it
+    # writes; its replay evaluates the entries kernel 2 did
+    bytes_2b = (nbytes(table, uv_rows, pairs.pair_gauss, pairs.tile_start,
+                       pairs.tile_end, table, uv_rows)
+                + 4 * mlist[..., 0].numel() + 16 * live)
+    bound_2b, by_2b = bound(bytes_2b, eval_2b * OPS_A_BWD_EVAL
+                            + live * OPS_A_BWD_SLOT)
+    sub_note = "" if bool(keep.all()) else f" on {int(keep.sum())} tiles"
+    log(f"[time] kernel 2' uvtex_mlist_bwd: {ms_2b:.4f} ms, plain "
+        f"{plain_2b:.3f} ms{sub_note}, bound {bound_2b:.4f} ms ({by_2b}: "
+        f"{bytes_2b / 1e6:.1f} MB, {eval_2b} evaluated pairs, {live} live "
+        "slots)")
+    log(f"  1' + 2' against A' on the capture step: max abs err {err_ab:.3e}; "
+        f"kernel 1 at F = {n_f} max abs err {err_1:.3e}")
+    profile_device(torch, "one two-kernel training step", timed_step, step_ms)
+    return model, [
+        entry("uvtex_mlist", "texgs_torch/csrc/uvtex_mlist.cu",
+              "texgs/kernels/pallas_uvtex.py:237", main_launches["uvtex_mlist"],
+              ms_2, plain_2, bound_2, by_2, err_2),
+        entry("uvtex_mlist_bwd", "texgs_torch/csrc/uvtex_mlist_bwd.cu",
+              "texgs/kernels/pallas_uvtex.py:290",
+              train_launches["uvtex_mlist_bwd"], ms_2b, plain_2b, bound_2b,
+              by_2b, err_2b),
+    ]
+
+
+def tools_phase(torch, device, model, work_dir):
+    """Phase 18 (see the module docstring)."""
+    import socket
+    import urllib.error
+    import urllib.request
+    from pathlib import Path
+
+    from texgs_torch.config import Cfg, dump_config
+    from texgs_torch.io import checkpoint as ckpt
+    from texgs_torch.io import png
+    from texgs_torch.tools import evaluate, extract_texture, retexture
+
+    d = f"{work_dir}/tools"
+    ck = f"{d}/checkpoints/{FIRST_ITER + STEPS}"
+    ckpt.save(ck, model.state_dict(), FIRST_ITER + STEPS)
+    cfg_path = f"{d}/stage3.yaml"
+    dump_config(Cfg({
+        "dataset_cfg": {"type": "scene", "data_root_dir":
+                        f"synthetic://sphere?n={TOOLS_POINTS}&views="
+                        f"{TOOLS_VIEWS}&size={TOOLS_SIZE}",
+                        "background": [0, 0, 0], "shuffle": False,
+                        "resolution": 1, "resolution_scales": [1.0]},
+        "model_cfg": dict(MODEL_CFG, backend="pallas"),
+        "train_cfg": {}}), cfg_path)
+    common = ["--ckpt", ck, "--device", str(device)]
+
+    t0 = time.perf_counter()
+    cube = extract_texture.main([cfg_path, *common, "--out", f"{d}/tex.png"])
+    back = png.read(f"{d}/tex.png")
+    if not np.array_equal(back, (np.clip(cube, 0, 1) * 255).astype(np.uint8)):
+        fail("extract_texture's PNG does not read back as its cube map")
+    log(f"[tools] extract_texture: {back.shape[1]}x{back.shape[0]} cube cross "
+        f"in {time.perf_counter() - t0:.1f} s (written and read back)")
+
+    t0 = time.perf_counter()
+    summary, rows = evaluate.main([cfg_path, *common, "--out",
+                                   f"{d}/metrics.json", "--save_images",
+                                   f"{d}/eval"])
+    saved = png.read(f"{d}/eval/00000.png")
+    values = [summary[k] for k in ("psnr", "ssim", "l1")] + [
+        r["normal_mae_deg"] for r in rows]
+    if not all(math.isfinite(v) for v in values) or saved.shape != (
+            TOOLS_SIZE, TOOLS_SIZE, 3):
+        fail(f"evaluate: metrics {summary}, saved image {saved.shape}")
+    log(f"[tools] evaluate: {summary['n_views']} test view(s) of "
+        f"{TOOLS_SIZE}x{TOOLS_SIZE}, PSNR {summary['psnr']:.3f} dB, SSIM "
+        f"{summary['ssim']:.4f}, L1 {summary['l1']:.4f}, normal MAE "
+        f"{rows[0]['normal_mae_deg']:.2f} deg, {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cross = (np.indices((3 * 256, 4 * 256)).sum(0) // 32 % 2 * 200 + 30)
+    png.write(f"{d}/cross.png", np.repeat(cross[..., None], 3, -1)
+              .astype(np.uint8))
+    _, outs = retexture.main([cfg_path, *common, "--out", f"{d}/retex",
+                              "--load_texture_from", f"{d}/cross.png",
+                              "--mode", "0"])
+    images = [png.read(p) for split in ("train", "test") for p in outs[split]]
+    if (len(images) != TOOLS_VIEWS or any(im.shape != (TOOLS_SIZE, TOOLS_SIZE, 3)
+                                          for im in images)
+            or not any(im.any() for im in images)):
+        fail(f"retexture wrote {len(images)} views")
+    log(f"[tools] retexture: a {cross.shape[1]}x{cross.shape[0]} cross resized "
+        f"to the {TEX_RES}^2 texture, {len(images)} views written and read "
+        f"back, {time.perf_counter() - t0:.1f} s")
+
+    # the viewer as a user starts it, in a process of its own
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    with open(f"{d}/viewer.log", "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "texgs_torch.tools.viewer", cfg_path,
+             *common, "--port", str(port)],
+            cwd=str(Path(__file__).resolve().parent), stdout=out,
+            stderr=subprocess.STDOUT)
+        try:
+            url = f"http://127.0.0.1:{port}"
+            while True:
+                try:
+                    with urllib.request.urlopen(url + "/", timeout=10):
+                        break
+                except (urllib.error.URLError, ConnectionError):
+                    if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                        fail("the viewer did not start: "
+                             + Path(f"{d}/viewer.log").read_text()[-2000:])
+                    time.sleep(1)
+            up_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(
+                    url + "/frame?az=0.5&el=0.3&r=3.5&mode=rgb&scale=1&fov=50",
+                    timeout=120) as resp:
+                frame = png.decode(resp.read())
+            frame_s = time.perf_counter() - t0
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    if frame.shape != (480, 640, 3) or not frame.any():
+        fail(f"the viewer's frame is {frame.shape}, nonzero {bool(frame.any())}")
+    log(f"[tools] viewer: up in {up_s:.1f} s, one 640x480 /frame PNG in "
+        f"{frame_s:.3f} s ({int((frame.sum(-1) > 0).sum())} pixels lit)")
+
+
 def build_model(torch, device):
     from texgs_torch.config import Cfg
     from texgs_torch.core.state import init_from_pcd
@@ -1166,6 +1577,8 @@ def main() -> int:
         f"m={int(model.cfg.get_or('uvtex_m', 32))}, UV-net prefit map err "
         f"{fit_err:.4f}, {time.perf_counter() - t0:.1f} s")
 
+    # phase 3's model, for the two-kernel phases
+    sd0 = model.state_dict()
     # the arguments the main path hands each kernel wrapper, for view 0
     a_args, b_args = main_path_kernel_args(model, cams[0])
     table, uv_rows, pairs, _, _, m = a_args
@@ -1294,8 +1707,9 @@ def main() -> int:
         profile_device(torch, "one render of view 0",
                        lambda: model.render(cams[0]), render_ms)
 
-    kernels += train_phases(torch, model, cams, views)
-    del model, views, retextured, a_args, b_args, got_a, want_a, got_b, want_b
+    entries, step_ms = train_phases(torch, model, cams, views)
+    kernels += entries
+    del model, a_args, b_args, got_a, want_a, got_b, want_b
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as work_dir:
@@ -1305,6 +1719,13 @@ def main() -> int:
         del stage1, s1_views
         torch.cuda.empty_cache()
         driver_phase(work_dir, device)
+        model, entries = two_kernel_phases(torch, device, sd0, cams, views,
+                                           retextured, chess, render_ms,
+                                           step_ms)
+        kernels += entries
+        del views, retextured
+        torch.cuda.empty_cache()
+        tools_phase(torch, device, model, work_dir)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,8 +24,10 @@ column group (quad, channels, uv rows) at atol 1e-3 max|plain| + rtol
 1e-3, with at most 4 Gaussians beyond (the stop flips above move whole
 entries); B' at tests/test_textile.py's tolerances (d texture 1e-5 +
 1e-3 |x|, live-slot d M-lists 3e-5 + 1e-3 |x|); the hash gather exactly.
-Kernels 1 and 1' (the stage-1/2 blend) are held as A and A' are, without
-the M-list and uv rows.
+Kernels 1 and 1' (the stage-1/2 blend, and the two-kernel stage-3 blend at
+F = 10) are held as A and A' are, without the M-list and uv rows; kernels
+2 and 2' (the two-kernel stage-3 M-lists) as A and A' are, without the
+blend channels.
 """
 
 import numpy as np
@@ -42,6 +44,9 @@ from texgs_torch.kernels.uvtex_fused import (fused_pairs, fused_pairs_backward,
                                              mlist_scan, mlist_scan_vjp)
 from texgs_torch.kernels.raster import (raster_pairs, raster_pairs_backward,
                                         raster_scan, raster_scan_vjp)
+from texgs_torch.kernels.uvtex_mlist import (mlist_only_scan,
+                                             mlist_only_scan_vjp, mlist_pairs,
+                                             mlist_pairs_backward)
 from texgs_torch.nets.hash_gather import gather_plain, hash_gather
 
 
@@ -465,9 +470,10 @@ def test_train_step_on_card_matches_cpu(cuda_device):
                                    err_msg=f"grad mismatch: {k}")
 
 
-def kernel_1_inputs(n=3000, width=80, height=64, seed=0):
+def kernel_1_inputs(n=3000, width=80, height=64, seed=0, n_extra=0):
     """Kernel 1's inputs for one view of a textured sphere with SH colours
-    (CPU tensors): (table, pairs, gx)."""
+    (CPU tensors): (table, pairs, gx), with F = 7 + n_extra blend
+    channels."""
     pcd = textured_sphere_point_cloud(n, seed=seed)
     st = init_from_pcd(pcd.points, pcd.colors, 3, device="cpu")
     cam = orbit_cameras(1, radius=3.5, width=width, height=height)[0]
@@ -484,8 +490,9 @@ def kernel_1_inputs(n=3000, width=80, height=64, seed=0):
         campos, width, height, cam.tanfovx, cam.tanfovy)
     pairs = binning.build_pairs(proj.means2d, proj.depths, proj.radii,
                                 height, width)
-    return (tile_raster.build_gauss_table(proj), pairs,
-            binning.grid_shape(height, width)[1])
+    extra = torch.as_tensor(rng.normal(size=(n, n_extra)), dtype=torch.float32)
+    return (tile_raster.build_gauss_table(proj, extra if n_extra else None),
+            pairs, binning.grid_shape(height, width)[1])
 
 
 def opaque_stack_inputs(n_opaque=4, n_dead=2):
@@ -540,36 +547,39 @@ def test_raster_wrappers_run_plain_version_on_cpu():
 
 @pytest.mark.cuda
 def test_raster_rejects_channels_off_the_path(cuda_device):
-    """Kernel 1 is built for the stage-1/2 path's F = 7 only: the wrapper
-    refuses another F, and so does the C entry (cudaErrorInvalidValue)."""
+    """Kernel 1 is built for F = 7 (stages 1 and 2) and F = 10 (the
+    two-kernel stage-3 render) only: the wrapper refuses another F, and so
+    does the C entry (cudaErrorInvalidValue)."""
     from texgs_torch import _build
     from texgs_torch.kernels import raster as kr
 
     table, pairs, gx = _to1(cuda_device, kernel_1_inputs(n=200))
-    wide = torch.cat([table, table[:, :3]], dim=1).contiguous()
+    wide = torch.cat([table, table[:, :1]], dim=1).contiguous()   # F = 8
     with pytest.raises(ValueError, match="blend channels"):
         raster_pairs(wide, pairs, gx)
     n_tiles = pairs.tile_counts.numel()
-    out = torch.empty((n_tiles, 256, 10), device=cuda_device)
+    out = torch.empty((n_tiles, 256, 8), device=cuda_device)
     t_fin = torch.empty((n_tiles, 256), device=cuda_device)
     n_eval = torch.empty((n_tiles, 256), dtype=torch.int32, device=cuda_device)
     p = _build.ptr
     err = _build.function("raster", "raster_forward", kr._FWD_ARGS)(
         p(wide), wide.shape[1], p(pairs.pair_gauss), p(pairs.tile_start),
-        p(pairs.tile_end), n_tiles, gx, 10, p(out), p(t_fin), p(n_eval),
+        p(pairs.tile_end), n_tiles, gx, 8, p(out), p(t_fin), p(n_eval),
         _build.stream_of(wide))
     assert err == 1  # cudaErrorInvalidValue
     err = _build.function("raster_bwd", "raster_backward", kr._BWD_ARGS)(
         p(wide), wide.shape[1], p(pairs.pair_gauss), p(pairs.tile_start),
-        p(pairs.tile_end), n_tiles, gx, 10, p(out), p(t_fin), p(out),
+        p(pairs.tile_end), n_tiles, gx, 8, p(out), p(t_fin), p(out),
         p(t_fin), p(wide), _build.stream_of(wide))
     assert err == 1
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_extra", [0, 3], ids=["F7", "F10"])
 @pytest.mark.parametrize("size", [(80, 64), (200, 136)], ids=str)
-def test_raster_kernel_matches_plain(cuda_device, size):
-    args = _to1(cuda_device, kernel_1_inputs(width=size[0], height=size[1]))
+def test_raster_kernel_matches_plain(cuda_device, size, n_extra):
+    args = _to1(cuda_device, kernel_1_inputs(width=size[0], height=size[1],
+                                             n_extra=n_extra))
     before = raster_pairs.launches
     got = raster_pairs(*args)
     torch.cuda.synchronize()
@@ -581,24 +591,34 @@ def test_raster_kernel_matches_plain(cuda_device, size):
     assert int(got[2].sum()) > 0
 
 
-def assert_raster_backward_close(got, want, max_off=4):
-    """Kernel 1' against its plain version: per column group (quad,
-    channels), atol 1e-3 of the group's max |plain| + rtol 1e-3, at most
+def assert_columns_close(groups, max_off=4):
+    """A backward kernel against its plain version, per column group {name:
+    (got, want)}: atol 1e-3 of the group's max |plain| + rtol 1e-3, at most
     max_off Gaussians beyond; a zero output must fail."""
-    for name, cols in (("quad", slice(0, 6)), ("channels", slice(7, 14))):
-        g, w = got[:, cols], want[:, cols]
+    for name, (g, w) in groups.items():
         assert bool(torch.isfinite(g).all()), name
         tol = 1e-3 * w.abs().max() + 1e-3 * w.abs()
         off = int(((g - w).abs() > tol).any(-1).sum())
         assert off <= max_off, f"{name}: {off} Gaussians beyond tolerance"
         assert int((w.abs() > tol).any(-1).sum()) > max_off, \
             f"{name}: the check could not refuse zeros"
+
+
+def assert_raster_backward_close(got, want, max_off=4):
+    """Kernel 1' against its plain version: per column group (quad,
+    channels), atol 1e-3 of the group's max |plain| + rtol 1e-3, at most
+    max_off Gaussians beyond; a zero output must fail."""
+    channels = [*range(7, 14), *range(16, got.shape[1])]
+    assert_columns_close({"quad": (got[:, :6], want[:, :6]),
+                          "channels": (got[:, channels], want[:, channels])},
+                         max_off)
     assert not bool(got[:, [6, 14, 15]].any())
 
 
 @pytest.mark.cuda
-def test_raster_backward_kernel_matches_plain(cuda_device):
-    args = _to1(cuda_device, kernel_1_inputs())
+@pytest.mark.parametrize("n_extra", [0, 3], ids=["F7", "F10"])
+def test_raster_backward_kernel_matches_plain(cuda_device, n_extra):
+    args = _to1(cuda_device, kernel_1_inputs(n_extra=n_extra))
     outs = raster_pairs(*args)
     rng = np.random.default_rng(5)
     cots = [torch.as_tensor(rng.normal(size=tuple(t.shape)), dtype=torch.float32,
@@ -722,3 +742,145 @@ def test_stage1_step_on_card_matches_cpu(cuda_device):
         denom = np.abs(a).max() + 1e-12
         np.testing.assert_allclose(b / denom, a / denom, atol=2e-3,
                                    err_msg=f"grad mismatch: {k}")
+
+
+def opaque_stack_mlist_inputs(n_opaque=5, n_dead=2, m=8):
+    """Kernel 2's arguments (table, uv_rows, pairs, rays, gx = 1, m) for one
+    16x16 tile covered by n_opaque flat layers of alpha 0.8 and, behind
+    them, n_dead layers whose blend channels and uv rows are NaN: every
+    pixel stops at the first of them (T = 0.2^6 < 1e-4)."""
+    n = n_opaque + n_dead
+    table = torch.zeros((n, 19))
+    logop = float(np.log(0.8))
+    table[:, 5] = logop          # flat exponent: power = log-opacity
+    table[:, 6] = logop
+    table[n_opaque:, 7:14] = float("nan")
+    table[n_opaque:, 16:] = float("nan")
+    rng = np.random.default_rng(4)
+    uv_rows = torch.as_tensor(rng.normal(size=(n, 24)), dtype=torch.float32)
+    uv_rows[:, 3:9] = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 1.0])
+    uv_rows[n_opaque:] = float("nan")
+    pairs = binning.PairList(
+        pair_gauss=torch.arange(n, dtype=torch.int32),
+        pair_tile=torch.zeros(n, dtype=torch.int32),
+        tile_start=torch.zeros(1, dtype=torch.int32),
+        tile_end=torch.full((1,), n, dtype=torch.int32),
+        tile_counts=torch.full((1,), n, dtype=torch.int32),
+        n_pairs=torch.tensor(n), overflowed=torch.tensor(False))
+    rays = np.array([[0.01, 0, 0], [0, 0.01, 0], [-0.08, -0.08, 1.0]],
+                    np.float32)
+    return table, uv_rows, pairs, rays, 1, m
+
+
+def test_mlist_wrappers_run_plain_version_on_cpu():
+    args = kernel_a_inputs(n=600, width=48, height=32, m=8)
+    want = mlist_only_scan(*args)
+    g = kernel_a_cotangents((want, want, want))[0]
+    before = (mlist_pairs.launches, mlist_pairs_backward.launches)
+    got = mlist_pairs(*args)
+    grads = mlist_pairs_backward(*args, got, g)
+    assert (mlist_pairs.launches, mlist_pairs_backward.launches) == before
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for a, b in zip(grads, mlist_only_scan_vjp(*args, g)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def _slots_off(got, want):
+    """Pixels where kernel 2 and its plain version disagree: an M-list
+    value beyond atol 1e-5 + rtol 1e-4."""
+    return int(((got - want).abs() > 1e-5 + 1e-4 * want.abs())
+               .flatten(2).any(-1).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n_extra", [(8, 3), (32, 3), (32, 0), (5, 0)])
+def test_mlist_kernel_matches_plain(cuda_device, m, n_extra):
+    """Kernel 2 against its plain version, and against kernel A's M-lists:
+    the two-kernel render and the fused one keep the same contributors."""
+    args = _to(cuda_device, kernel_a_inputs(m=m, n_extra=n_extra))
+    before = mlist_pairs.launches
+    got = mlist_pairs(*args)
+    torch.cuda.synchronize()
+    assert mlist_pairs.launches == before + 1
+    for want in (mlist_only_scan(*args), fused_pairs(*args)[2]):
+        assert _slots_off(got, want) <= 4
+        assert (got[..., 0] - want[..., 0]).abs().max().item() <= 0.05
+    assert bool((got[..., 0] > 0).any())
+
+
+@pytest.mark.cuda
+def test_mlist_kernel_empty_scene(cuda_device):
+    table, uv_rows, pairs, rays, gx, m = _to(cuda_device, kernel_a_inputs())
+    empty = binning.PairList(
+        pairs.pair_gauss[:0], pairs.pair_tile[:0],
+        torch.zeros_like(pairs.tile_start), torch.zeros_like(pairs.tile_end),
+        torch.zeros_like(pairs.tile_counts), pairs.n_pairs * 0,
+        pairs.overflowed)
+    ml = mlist_pairs(table, uv_rows, empty, rays, gx, m)
+    assert not bool(ml.any())
+    d_table, d_uv = mlist_pairs_backward(table, uv_rows, empty, rays, gx, m,
+                                         ml, torch.ones_like(ml))
+    assert not bool(d_table.any()) and not bool(d_uv.any())
+
+
+def assert_mlist_backward_close(got, want, max_off=4):
+    """Kernel 2' against its plain version: the quad columns of the table
+    and the uv rows' first 12 columns per group, as A' is held; every other
+    column zero."""
+    (d_table, d_uv), (d_table_w, d_uv_w) = got, want
+    assert_columns_close({"quad": (d_table[:, :6], d_table_w[:, :6]),
+                          "uv rows": (d_uv[:, :12], d_uv_w[:, :12])}, max_off)
+    assert not bool(d_table[:, 6:].any()) and not bool(d_uv[:, 12:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n_extra", [(8, 3), (32, 0)])
+def test_mlist_backward_kernel_matches_plain(cuda_device, m, n_extra):
+    args = _to(cuda_device, kernel_a_inputs(m=m, n_extra=n_extra))
+    ml = mlist_pairs(*args)
+    g = kernel_a_cotangents((ml, ml, ml), seed=4)[0]
+    before = mlist_pairs_backward.launches
+    got = mlist_pairs_backward(*args, ml, g)
+    torch.cuda.synchronize()
+    assert mlist_pairs_backward.launches == before + 1
+    assert_mlist_backward_close(got, mlist_only_scan_vjp(*args, g))
+
+
+@pytest.mark.cuda
+def test_mlist_backward_through_autograd(cuda_device):
+    """mlist_pairs' backward launches kernel 2' once and agrees with
+    autograd through the plain version; with kernel 1' beside it, the
+    two-kernel render's gradient is kernel A''s."""
+    table, uv_rows, pairs, rays, gx, m = _to(cuda_device, kernel_a_inputs())
+    t = table.clone().requires_grad_(True)
+    u = uv_rows.clone().requires_grad_(True)
+    ml = mlist_pairs(t, u, pairs, rays, gx, m)
+    blend, t_final, _ = raster_pairs(t, pairs, gx)
+    g_blend, g_t, g_ml = kernel_a_cotangents((blend, t_final, ml), seed=7)
+    before = mlist_pairs_backward.launches
+    got = torch.autograd.grad(ml, (t, u), g_ml, retain_graph=True)
+    assert mlist_pairs_backward.launches == before + 1
+    assert_mlist_backward_close(got, mlist_only_scan_vjp(
+        table, uv_rows, pairs, rays, gx, m, g_ml))
+    two = torch.autograd.grad((blend, t_final, ml), (t, u), (g_blend, g_t, g_ml))
+    outs = fused_pairs(table, uv_rows, pairs, rays, gx, m)
+    assert_a_backward_close(two, fused_pairs_backward(
+        table, uv_rows, pairs, rays, gx, m, *outs[:3], g_blend, g_t, g_ml))
+
+
+@pytest.mark.cuda
+def test_mlist_kernels_dead_nan(cuda_device):
+    """NaN channels and uv rows behind an opaque stack, NaN cotangents on
+    the empty slots: finite M-lists and gradients, none for the dead
+    entries."""
+    args = _to(cuda_device, opaque_stack_mlist_inputs())
+    ml = mlist_pairs(*args)
+    live = ml[..., 0] > 0
+    assert bool(torch.isfinite(ml).all())
+    assert bool(live[..., :5].all()) and not bool(live[..., 5:].any())
+    g = torch.ones_like(ml)
+    g[~live] = float("nan")
+    d_table, d_uv = mlist_pairs_backward(*args, ml, g)
+    assert bool(torch.isfinite(d_table).all()) and bool(torch.isfinite(d_uv).all())
+    assert not bool(d_table[5:].any()) and not bool(d_uv[5:].any())
+    assert bool(d_table[:5, :6].any()) and bool(d_uv[:5, :12].any())

@@ -4,7 +4,9 @@ and kernel B's plain backward versions against texgs.
 * The whole ``rasterize_uvtex`` (projection, tables, blend + M-lists,
   texture term, no-SH channels) against ``jax.grad`` of texgs's on its
   scan backend and on its fused Pallas kernel in interpret mode, with the
-  exact texture term, for F = 7 and F = 10 blend channels.  Tolerance: atol
+  exact texture term, for F = 7 and F = 10 blend channels; and the port's
+  two-kernel path (``backend="pallas"``: kernels 1 and 2) against texgs's
+  scan backend and its two-kernel Pallas path in interpret mode.  Tolerance: atol
   2e-3 of the leaf's max |grad|, as tests/test_uvtex_raster.py compares
   texgs's own backends; the scene is its well-conditioned soft-opacity
   one (opacities far from the 0.99 clamp).
@@ -16,6 +18,8 @@ and kernel B's plain backward versions against texgs.
 * Empty tiles and dead M-list slots: an empty tile passes no gradient, and
   a NaN cotangent on a dead slot reaches no gradient.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -79,7 +83,7 @@ def jax_grads(sc, backend, with_no_sh, m):
     return jax.grad(loss, argnums=tuple(range(7)))(*args)
 
 
-def port_grads(sc, with_no_sh, m):
+def port_grads(sc, with_no_sh, m, backend="auto"):
     cam = torch_camera(sc["cam"])
     target = torch.as_tensor(_target(sc["cam"]))
     leaves = [torch.tensor(a, requires_grad=True) for a in _inputs(sc)]
@@ -94,7 +98,7 @@ def port_grads(sc, with_no_sh, m):
         cam.tanfovx, cam.tanfovy)
     out = tuv.rasterize_uvtex(proj, scaling, rot, xyz, uvs,
                               t(sc["jac"]), tex, shs, 2, cam, t(BG), m=m,
-                              with_no_sh=with_no_sh)
+                              with_no_sh=with_no_sh, backend=backend)
     total = ((out.image - target).abs().mean() + 0.1 * out.alpha.mean()
              + 0.01 * out.depth.mean() + 0.01 * out.norm.mean())
     if with_no_sh:
@@ -103,12 +107,22 @@ def port_grads(sc, with_no_sh, m):
     return [p.grad for p in leaves]
 
 
-@pytest.mark.parametrize("backend", ["scan", "fused"])
+@functools.lru_cache(maxsize=None)
+def _render_grads_jax(backend, with_no_sh):
+    """jax_grads on the well-conditioned scene, once for both port paths."""
+    return jax_grads(scene(n=192, size=32, opacity=2.0), backend, with_no_sh,
+                     m=32)
+
+
+@pytest.mark.parametrize("backend,port_backend", [
+    ("scan", "auto"), ("fused", "auto"), ("scan", "pallas"),
+    ("pallas", "pallas")],
+    ids=["scan", "fused", "scan-port_pallas", "pallas-port_pallas"])
 @pytest.mark.parametrize("with_no_sh", [False, True], ids=["F7", "F10"])
-def test_render_grads_match_jax(backend, with_no_sh):
+def test_render_grads_match_jax(backend, port_backend, with_no_sh):
     sc = scene(n=192, size=32, opacity=2.0)
-    want = jax_grads(sc, backend, with_no_sh, m=32)
-    got = port_grads(sc, with_no_sh, m=32)
+    want = _render_grads_jax(backend, with_no_sh)
+    got = port_grads(sc, with_no_sh, m=32, backend=port_backend)
     for name, a, b in zip(NAMES, want, got):
         a, b = np.asarray(a), b.numpy()
         assert np.isfinite(b).all(), name

@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "texgs_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNEL_SOURCES = ("uvtex_fused", "uvtex_fused_bwd", "tex_term", "tex_term_bwd",
-                  "hash_gather", "raster", "raster_bwd")
+                  "hash_gather", "raster", "raster_bwd", "uvtex_mlist",
+                  "uvtex_mlist_bwd")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,6 @@
 // Kernel 1: the front-to-back blend of stages 1 and 2 (rgb, depth, normal)
-// over each tile's depth-sorted pairs, with the final transmittance.
+// and of the two-kernel stage-3 render over each tile's depth-sorted pairs,
+// with the final transmittance.
 //
 // Replaces the TPU kernel texgs/kernels/pallas_raster.py:309 (raster_pairs;
 // body _fwd_kernel at :182 with _chunk_core at :138, pallas_call at :345).
@@ -30,10 +31,15 @@
 // (tile_raster.py:206), not the Pallas kernel's log-sum (:157).  n_eval
 // counts the pairs each pixel evaluated, the one that stopped it included.
 //
-// Bound on Hopper: bytes at the stage-1 shape.  It reads a record of 16
-// floats per pair and writes 9 values a pixel; the work per evaluated
-// (pixel, pair) is about 16 + 2F f32 operations.  The design reads each
-// record once per block and shares it among the tile's 256 pixels.
+// Built for F = 7 (rgb, depth, normal: stages 1 and 2) and F = 10 (those
+// plus the three no-SH channels of the two-kernel stage-3 render), as
+// kernel A is.
+//
+// Bound on Hopper: operations at the stage-1 shape.  It reads a record of
+// 16 + F - 7 floats per pair and writes F + 2 values a pixel; the work per
+// evaluated (pixel, pair) is about 16 + 2F f32 operations.  The design
+// reads each record once per block and shares it among the tile's 256
+// pixels.
 
 #include <cuda_runtime.h>
 
@@ -43,9 +49,9 @@ namespace {
 
 using namespace texgs;
 
-constexpr int NF = N_FIXED_F;  // rgb, depth, normal: the stage-1/2 path
-constexpr int BATCH = PIX;     // one staged record per thread
+constexpr int BATCH = PIX;  // one staged record per thread
 
+template <int NF>
 __global__ void __launch_bounds__(PIX)
     raster_fwd(const float* __restrict__ table,
                const int* __restrict__ pair_gauss,
@@ -53,6 +59,7 @@ __global__ void __launch_bounds__(PIX)
                const int* __restrict__ tile_end, int gx,
                float* __restrict__ blend, float* __restrict__ t_final,
                int* __restrict__ n_eval) {
+  constexpr int TAB_COLS = TABLE_FIXED + NF - N_FIXED_F;
   __shared__ float s_quad[BATCH][8];  // 6 coefficients, log-opacity, pad
   __shared__ float s_feat[BATCH][NF];
 
@@ -79,7 +86,7 @@ __global__ void __launch_bounds__(PIX)
     const int j = base + tid;
     if (j < end) {
       const int g = pair_gauss[j];
-      stage_quad<NF>(table + static_cast<size_t>(g) * TABLE_FIXED, tile_x,
+      stage_quad<NF>(table + static_cast<size_t>(g) * TAB_COLS, tile_x,
                      tile_y, s_quad[tid], s_feat[tid]);
     }
     __syncthreads();
@@ -108,25 +115,44 @@ __global__ void __launch_bounds__(PIX)
   n_eval[pix] = evals;
 }
 
+template <int NF>
+void launch(const void* table, const void* pair_gauss, const void* tile_start,
+            const void* tile_end, int n_tiles, int gx, void* blend,
+            void* t_final, void* n_eval, cudaStream_t stream) {
+  raster_fwd<NF><<<n_tiles, PIX, 0, stream>>>(
+      static_cast<const float*>(table), static_cast<const int*>(pair_gauss),
+      static_cast<const int*>(tile_start), static_cast<const int*>(tile_end),
+      gx, static_cast<float*>(blend), static_cast<float*>(t_final),
+      static_cast<int*>(n_eval));
+}
+
 }  // namespace
 
 // Blend channels (n_tiles, 256, n_f), T_final (n_tiles, 256) and
 // evaluated-pair counts (n_tiles, 256) of every tile, from the
 // per-Gaussian table (N, tab_cols) of tile_raster.build_gauss_table.
-// Only n_f = 7 (tab_cols = 16) is built.  Returns the launch's
-// cudaGetLastError().
+// n_f = 7 and n_f = 10 are built (tab_cols = 16 + n_f - 7).  Returns the
+// launch's cudaGetLastError().
 extern "C" int raster_forward(const void* table, int tab_cols,
                               const void* pair_gauss, const void* tile_start,
                               const void* tile_end, int n_tiles, int gx,
                               int n_f, void* blend, void* t_final,
                               void* n_eval, void* stream) {
-  if (n_f != NF || tab_cols != TABLE_FIXED)
+  if (tab_cols != TABLE_FIXED + n_f - N_FIXED_F)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_tiles <= 0) return 0;
-  raster_fwd<<<n_tiles, PIX, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), static_cast<const int*>(pair_gauss),
-      static_cast<const int*>(tile_start), static_cast<const int*>(tile_end),
-      gx, static_cast<float*>(blend), static_cast<float*>(t_final),
-      static_cast<int*>(n_eval));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TEXGS_CASE(NF)                                                      \
+  case NF:                                                                  \
+    if (n_tiles <= 0) return 0;                                             \
+    launch<NF>(table, pair_gauss, tile_start, tile_end, n_tiles, gx, blend, \
+               t_final, n_eval, s);                                         \
+    break;
+  switch (n_f) {
+    TEXGS_CASE(7)
+    TEXGS_CASE(10)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TEXGS_CASE
   return static_cast<int>(cudaGetLastError());
 }

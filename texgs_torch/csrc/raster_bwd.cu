@@ -6,7 +6,8 @@
 // raster_scan).
 //
 // What it computes.  The vector-Jacobian product of kernel 1's outputs
-// (blend channels, T_final) into the per-Gaussian table (N, 16).  Per
+// (blend channels, T_final) into the per-Gaussian table (N, 16 + F - 7).
+// Built for F = 7 and F = 10, as kernel 1 is.  Per
 // (pixel, pair) entry j with weight w_j = alpha_j T_j and channel
 // cotangent g_j = sum_F feat_F g_out_F, texgs's suffix form gives
 //   d alpha_j = T_j g_j - (sum_{i>j} w_i g_i + T_final g_T) / (1 - alpha_j),
@@ -21,7 +22,7 @@
 // in the forward.  All threads walk the pairs in step; a pixel that has
 // stopped, and a pair past the tile's end, contribute zeros, written by
 // select (texgs multiplies a dead entry's garbage by 0, which lets NaN
-// through).  Each pair's 13 values (6 quadratic coefficients, 7 channels)
+// through).  Each pair's 6 + F values (6 quadratic coefficients, F channels)
 // are summed over the tile's 256 pixels: warp shuffles reduce them to 8
 // partials, which go to shared memory; every GROUP pairs the block adds the
 // partials and issues one atomicAdd per pair and nonzero column into the
@@ -34,7 +35,7 @@
 // Bound on Hopper: operations at the stage-1 shape.  It reads the table
 // rows of each tile's pairs, the blend and T_final with their cotangents,
 // and writes the gradient; per evaluated (pixel, pair) it does the replay,
-// the suffix form and 13 warp sums (about 40 + 3F f32 operations).  The
+// the suffix form and 6 + F warp sums (about 40 + 3F f32 operations).  The
 // block reduction is what a later PR would make cheaper.
 
 #include <cuda_runtime.h>
@@ -45,14 +46,13 @@ namespace {
 
 using namespace texgs;
 
-constexpr int NF = N_FIXED_F;  // rgb, depth, normal: the stage-1/2 path
-constexpr int BATCH = 128;     // pair records staged per pass
-constexpr int GROUP = 8;       // pairs whose partial sums wait in shared memory
+constexpr int BATCH = 128;  // pair records staged per pass
+constexpr int GROUP = 8;    // pairs whose partial sums wait in shared memory
 constexpr int WARPS = PIX / 32;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int FEAT = 6;        // first channel value, after the 6 coefficients
-constexpr int N_COLS = 6 + NF;
+constexpr int FEAT = 6;     // first channel value, after the 6 coefficients
 
+template <int NF>
 __global__ void __launch_bounds__(PIX)
     raster_bwd(const float* __restrict__ table,
                const int* __restrict__ pair_gauss,
@@ -63,6 +63,8 @@ __global__ void __launch_bounds__(PIX)
                const float* __restrict__ g_blend,
                const float* __restrict__ g_t_final,
                float* __restrict__ d_table) {
+  constexpr int TAB_COLS = TABLE_FIXED + NF - N_FIXED_F;
+  constexpr int N_COLS = 6 + NF;
   __shared__ float s_quad[BATCH][8];
   __shared__ float s_feat[BATCH][NF];
   __shared__ int s_gauss[BATCH];
@@ -97,7 +99,7 @@ __global__ void __launch_bounds__(PIX)
     const int j = base + tid;
     if (tid < BATCH && j < end) {
       const int g = pair_gauss[j];
-      const float* row = table + static_cast<size_t>(g) * TABLE_FIXED;
+      const float* row = table + static_cast<size_t>(g) * TAB_COLS;
       stage_quad<NF>(row, tile_x, tile_y, s_quad[tid], s_feat[tid]);
       s_gauss[tid] = g;
       s_shift[tid][0] = tile_x - row[COL_ANCHOR];
@@ -187,8 +189,7 @@ __global__ void __launch_bounds__(PIX)
             col = feature_col(c - FEAT);
           }
           if (val != 0.f)
-            atomicAdd(d_table + static_cast<size_t>(s_gauss[k]) * TABLE_FIXED +
-                          col,
+            atomicAdd(d_table + static_cast<size_t>(s_gauss[k]) * TAB_COLS + col,
                       val);
         }
       }
@@ -197,13 +198,26 @@ __global__ void __launch_bounds__(PIX)
   }
 }
 
+template <int NF>
+void launch(const void* table, const void* pair_gauss, const void* tile_start,
+            const void* tile_end, int n_tiles, int gx, const void* blend,
+            const void* t_final, const void* g_blend, const void* g_t_final,
+            void* d_table, cudaStream_t stream) {
+  raster_bwd<NF><<<n_tiles, PIX, 0, stream>>>(
+      static_cast<const float*>(table), static_cast<const int*>(pair_gauss),
+      static_cast<const int*>(tile_start), static_cast<const int*>(tile_end),
+      gx, static_cast<const float*>(blend),
+      static_cast<const float*>(t_final), static_cast<const float*>(g_blend),
+      static_cast<const float*>(g_t_final), static_cast<float*>(d_table));
+}
+
 }  // namespace
 
 // Adds the VJP of kernel 1 into d_table (N, tab_cols), which the caller
 // zeroes.  blend and t_final are kernel 1's outputs for the same
 // arguments, g_blend and g_t_final their cotangents, of the same shapes.
-// Only n_f = 7 (tab_cols = 16) is built.  Returns the launch's
-// cudaGetLastError().
+// n_f = 7 and n_f = 10 are built (tab_cols = 16 + n_f - 7).  Returns the
+// launch's cudaGetLastError().
 extern "C" int raster_backward(const void* table, int tab_cols,
                                const void* pair_gauss, const void* tile_start,
                                const void* tile_end, int n_tiles, int gx,
@@ -211,14 +225,21 @@ extern "C" int raster_backward(const void* table, int tab_cols,
                                const void* t_final, const void* g_blend,
                                const void* g_t_final, void* d_table,
                                void* stream) {
-  if (n_f != NF || tab_cols != TABLE_FIXED)
+  if (tab_cols != TABLE_FIXED + n_f - N_FIXED_F)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_tiles <= 0) return 0;
-  raster_bwd<<<n_tiles, PIX, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(table), static_cast<const int*>(pair_gauss),
-      static_cast<const int*>(tile_start), static_cast<const int*>(tile_end),
-      gx, static_cast<const float*>(blend),
-      static_cast<const float*>(t_final), static_cast<const float*>(g_blend),
-      static_cast<const float*>(g_t_final), static_cast<float*>(d_table));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TEXGS_CASE(NF)                                                       \
+  case NF:                                                                   \
+    if (n_tiles <= 0) return 0;                                              \
+    launch<NF>(table, pair_gauss, tile_start, tile_end, n_tiles, gx, blend,  \
+               t_final, g_blend, g_t_final, d_table, s);                     \
+    break;
+  switch (n_f) {
+    TEXGS_CASE(7)
+    TEXGS_CASE(10)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TEXGS_CASE
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,12 @@
 // Device code shared by kernel A (uvtex_fused.cu), its backward A'
-// (uvtex_fused_bwd.cu), kernel 1 (raster.cu) and its backward 1'
-// (raster_bwd.cu): constants, the staging of one pair's record, the
-// per-pixel alpha and the transpose of the tile shift.  A backward replays
-// its forward's alpha, T and stop decisions, so all four must round every
-// operation of that chain the same way: one definition here keeps them
-// from drifting apart.
+// (uvtex_fused_bwd.cu), kernel 1 (raster.cu), its backward 1'
+// (raster_bwd.cu), kernel 2 (uvtex_mlist.cu) and its backward 2'
+// (uvtex_mlist_bwd.cu): constants, the staging of one pair's record, the
+// per-pixel alpha, the uv intersection and the transpose of the tile
+// shift.  A backward replays its forward's alpha, T and stop decisions,
+// and the two-kernel render's M-lists must follow its blend's, so all six
+// must round every operation of that chain the same way: one definition
+// here keeps them from drifting apart.
 
 #pragma once
 
@@ -56,7 +58,8 @@ __device__ __forceinline__ int feature_col(int f) {
 // from its anchor tile into the tile at (tile_x, tile_y) (tile_raster.
 // shift_to_tile), its log-opacity and its NF blend channels.  q receives
 // [qxx, qyy, qxy, qx, qy, qc, logop].  Kernels 1 and 1' (raster*.cu) stage
-// this alone; A and A' add the uv row (stage_record).
+// this alone; A, A', 2 and 2' add the uv row (stage_record; 2 and 2' with
+// NF = 0 and no channels).
 template <int NF>
 __device__ __forceinline__ void stage_quad(const float* __restrict__ row,
                                            float tile_x, float tile_y,
@@ -80,7 +83,7 @@ __device__ __forceinline__ void stage_quad(const float* __restrict__ row,
   for (int f = 0; f < NF; ++f) feat[f] = row[feature_col(f)];
 }
 
-// stage_quad plus the pair's uv row (kernels A and A').
+// stage_quad plus the pair's uv row (kernels A, A', 2 and 2').
 template <int NF>
 __device__ __forceinline__ void stage_record(const float* __restrict__ row,
                                              const float* __restrict__ uv,
@@ -159,6 +162,39 @@ __device__ __forceinline__ Intersection intersect(const float d[3],
 #pragma unroll
   for (int i = 0; i < 3; ++i) it.uvn[i] = u[i] / s;
   return it;
+}
+
+// The VJP of intersect into the uv row's first 12 entries [sv, siginv,
+// base_uv], for the cotangent g of the unit uv, through the normalisation,
+// t* (active for 0 <= t* <= 1e4, as torch.clamp's gradient is) and J d.  J
+// is a constant of the render: its columns get no gradient.
+__device__ __forceinline__ void intersect_grad(const float d[3],
+                                               const Intersection& it,
+                                               const float g[3],
+                                               float out[12]) {
+  const float s = it.norm + 1e-12f;
+  const float dot = it.uvn[0] * g[0] + it.uvn[1] * g[1] + it.uvn[2] * g[2];
+  float du[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    du[i] = g[i] / s - (it.norm > 0.f ? it.uvn[i] * dot / it.norm : 0.f);
+  float g_t = du[0] * it.jd[0] + du[1] * it.jd[1] + du[2] * it.jd[2];
+  if (!(it.t_raw >= 0.f && it.t_raw <= T_STAR_MAX)) g_t = 0.f;
+  const float g_num = g_t / it.den;
+  const float g_den = it.den_small ? 0.f : -g_t * it.t_raw / it.den;
+  const float dx = d[0], dy = d[1], dz = d[2];
+  out[0] = g_num * dx;
+  out[1] = g_num * dy;
+  out[2] = g_num * dz;
+  out[3] = g_den * dx * dx;
+  out[4] = g_den * 2.f * dx * dy;
+  out[5] = g_den * 2.f * dx * dz;
+  out[6] = g_den * dy * dy;
+  out[7] = g_den * 2.f * dy * dz;
+  out[8] = g_den * dz * dz;
+  out[9] = du[0];
+  out[10] = du[1];
+  out[11] = du[2];
 }
 
 }  // namespace texgs

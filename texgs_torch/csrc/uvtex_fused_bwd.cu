@@ -14,9 +14,9 @@
 //   d alpha_j = T_j g_j - (sum_{i>j} w_i g_i + T_final g_T) / (1 - alpha_j),
 // with sum_{i>j} w_i g_i = tot - prefix_j, tot = sum_F out g_out +
 // sum_slots w g_w.  The uv cotangent of an in-list entry runs back through
-// the normalisation, t* (active for 0 <= t* <= 1e4, as torch.clamp's
-// gradient is) and J d into sv, siginv and base_uv.  J is a constant of the
-// render (the table's J columns get no gradient, as in texgs's kernel).
+// the intersection into sv, siginv and base_uv (uvtex_common.cuh
+// intersect_grad).  J is a constant of the render (the table's J columns
+// get no gradient, as in texgs's kernel).
 //
 // Design.  One thread block per 16x16 tile, one thread per pixel, as kernel
 // A.  The block replays the tile's pairs in depth order with kernel A's own
@@ -176,33 +176,8 @@ __global__ void __launch_bounds__(PIX)
 #pragma unroll
             for (int f = 0; f < NF; ++f) v[C::FEAT + f] = w * g_out[f];
             if (in_list) {
-              const Intersection it = intersect(d, s_uv[k]);
               const float g[3] = {g_slot.y, g_slot.z, g_slot.w};
-              const float s = it.norm + 1e-12f;
-              const float dot =
-                  it.uvn[0] * g[0] + it.uvn[1] * g[1] + it.uvn[2] * g[2];
-              float du[3];
-#pragma unroll
-              for (int i = 0; i < 3; ++i)
-                du[i] = g[i] / s - (it.norm > 0.f ? it.uvn[i] * dot / it.norm
-                                                  : 0.f);
-              float g_t = du[0] * it.jd[0] + du[1] * it.jd[1] + du[2] * it.jd[2];
-              if (!(it.t_raw >= 0.f && it.t_raw <= T_STAR_MAX)) g_t = 0.f;
-              const float g_num = g_t / it.den;
-              const float g_den = it.den_small ? 0.f : -g_t * it.t_raw / it.den;
-              const float dx = d[0], dy = d[1], dz = d[2];
-              v[C::UV + 0] = g_num * dx;
-              v[C::UV + 1] = g_num * dy;
-              v[C::UV + 2] = g_num * dz;
-              v[C::UV + 3] = g_den * dx * dx;
-              v[C::UV + 4] = g_den * 2.f * dx * dy;
-              v[C::UV + 5] = g_den * 2.f * dx * dz;
-              v[C::UV + 6] = g_den * dy * dy;
-              v[C::UV + 7] = g_den * 2.f * dy * dz;
-              v[C::UV + 8] = g_den * dz * dz;
-              v[C::UV + 9] = du[0];
-              v[C::UV + 10] = du[1];
-              v[C::UV + 11] = du[2];
+              intersect_grad(d, intersect(d, s_uv[k]), g, v + C::UV);
             }
             any = alpha > 0.f;  // alpha = 0 leaves every value 0
             T = t_next;

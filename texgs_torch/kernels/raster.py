@@ -1,5 +1,5 @@
-"""Kernel 1 and its backward 1': the front-to-back blend of stages 1 and 2,
-differentiable.
+"""Kernel 1 and its backward 1': the front-to-back blend of stages 1 and 2
+and of the two-kernel stage-3 render, differentiable.
 
 Replaces the TPU kernel ``raster_pairs`` of texgs/kernels/pallas_raster.py:309
 (forward ``_fwd_kernel``, :182; backward ``_bwd_kernel``, :214).  The CUDA
@@ -31,6 +31,10 @@ from texgs_torch.kernels.tile_raster import (COL_ANCHOR, N_FIXED_F, NEG_INF,
                                              blend_features, chunk_weights,
                                              shift_to_tile, tile_power)
 
+# blend channels the kernels are instantiated for: rgb, depth and normal
+# (stages 1 and 2), and those plus the 3 no-SH channels of the two-kernel
+# stage-3 render
+KERNEL_F = (7, 10)
 CHUNK = 64  # pairs of each tile the plain version takes per step
 # table columns with no gradient: the log-opacity (read only by the
 # power > 0 skip) and the anchor corner (a floor of the projected mean)
@@ -115,9 +119,9 @@ def _check_args(name: str, table, pairs: PairList) -> int:
     if table.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {table.device}")
     n_f = table.shape[1] - TABLE_FIXED + N_FIXED_F
-    if n_f != N_FIXED_F:
+    if n_f not in KERNEL_F:
         raise ValueError(f"{name}: {n_f} blend channels, the kernel takes "
-                         f"{N_FIXED_F} (rgb, depth, normal)")
+                         f"{' or '.join(map(str, KERNEL_F))}")
     for arg, t, dtype in (("table", table, torch.float32),
                           ("pair_gauss", pairs.pair_gauss, torch.int32),
                           ("tile_start", pairs.tile_start, torch.int32),

@@ -151,15 +151,14 @@ _BWD_ARGS = [_P, _I, _P, _P, _P, _P, _RAYS, _I, _I, _I, _I,
              _P, _P, _P, _P, _P, _P, _P, _P, _P]
 
 
-def _check_args(name: str, table, uv_rows, pairs: PairList, m: int) -> int:
-    """Validates kernel A's (or A''s) common arguments on a CUDA device;
-    returns the blend channel count F."""
+def check_pair_args(name: str, table, uv_rows, pairs: PairList, m: int):
+    """Validates the arguments kernels A, A', 2 and 2' share, on a CUDA
+    device."""
     if table.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {table.device}")
-    n_f = table.shape[1] - TABLE_FIXED + N_FIXED_F
-    if n_f not in KERNEL_F:
-        raise ValueError(f"{name}: {n_f} blend channels, the kernel "
-                         f"takes {' or '.join(map(str, KERNEL_F))}")
+    if table.dim() != 2 or table.shape[1] < TABLE_FIXED:
+        raise ValueError(f"{name}: table must be (N, >= {TABLE_FIXED}), got "
+                         f"{tuple(table.shape)}")
     if m < 1:
         raise ValueError(f"{name}: m must be >= 1, got {m}")
     for arg, t, dtype in (("table", table, torch.float32),
@@ -173,11 +172,30 @@ def _check_args(name: str, table, uv_rows, pairs: PairList, m: int) -> int:
     if uv_rows.shape != (table.shape[0], UV_COLS):
         raise ValueError(f"{name}: uv_rows must be ({table.shape[0]}, "
                          f"{UV_COLS}), got {tuple(uv_rows.shape)}")
+
+
+def _check_args(name: str, table, uv_rows, pairs: PairList, m: int) -> int:
+    """Validates kernel A's (or A''s) common arguments on a CUDA device;
+    returns the blend channel count F."""
+    check_pair_args(name, table, uv_rows, pairs, m)
+    n_f = table.shape[1] - TABLE_FIXED + N_FIXED_F
+    if n_f not in KERNEL_F:
+        raise ValueError(f"{name}: {n_f} blend channels, the kernel "
+                         f"takes {' or '.join(map(str, KERNEL_F))}")
     return n_f
 
 
-def _rays9(rays: np.ndarray):
+def rays9(rays: np.ndarray):
+    """The (3, 3) ray constants as the C entries take them: 9 host floats."""
     return (ctypes.c_float * 9)(*np.asarray(rays, np.float32).reshape(-1))
+
+
+def check_float4(name: str, *tensors):
+    """The kernels read each M-list slot as one float4."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the M-lists and their cotangent must be "
+                         "16-byte aligned (the kernel reads each slot as one "
+                         "float4)")
 
 
 def fused_pairs_forward(table: torch.Tensor, uv_rows: torch.Tensor,
@@ -198,7 +216,7 @@ def fused_pairs_forward(table: torch.Tensor, uv_rows: torch.Tensor,
     p = _build.ptr
     err = _build.function("uvtex_fused", "uvtex_fused_forward", _FWD_ARGS)(
         p(table), table.shape[1], p(uv_rows), p(pairs.pair_gauss),
-        p(pairs.tile_start), p(pairs.tile_end), _rays9(rays), n_tiles, gx,
+        p(pairs.tile_start), p(pairs.tile_end), rays9(rays), n_tiles, gx,
         n_f, m, p(blend), p(t_final), p(mlist), p(n_eval),
         _build.stream_of(table))
     if err:
@@ -232,17 +250,14 @@ def fused_pairs_backward(table: torch.Tensor, uv_rows: torch.Tensor,
                 raise ValueError(f"fused_pairs_backward: {name} and its "
                                  f"cotangent must be contiguous float32 "
                                  f"{shapes[name]} tensors on {table.device}")
-    if mlist.data_ptr() % 16 or g_mlist.data_ptr() % 16:
-        raise ValueError("fused_pairs_backward: the M-lists and their "
-                         "cotangent must be 16-byte aligned (the kernel reads "
-                         "each slot as one float4)")
+    check_float4("fused_pairs_backward", mlist, g_mlist)
     d_table = torch.zeros_like(table)
     d_uv = torch.zeros_like(uv_rows)
     p = _build.ptr
     err = _build.function("uvtex_fused_bwd", "uvtex_fused_backward",
                           _BWD_ARGS)(
         p(table), table.shape[1], p(uv_rows), p(pairs.pair_gauss),
-        p(pairs.tile_start), p(pairs.tile_end), _rays9(rays), n_tiles, gx,
+        p(pairs.tile_start), p(pairs.tile_end), rays9(rays), n_tiles, gx,
         n_f, m, p(blend), p(t_final), p(mlist), p(g_blend), p(g_t_final),
         p(g_mlist), p(d_table), p(d_uv), _build.stream_of(table))
     if err:

@@ -1,6 +1,6 @@
 """UV-texture rasterizer: Taylor-expanded UVs + cubemap fetch per intersection.
 
-Port of texgs/kernels/uvtex_raster.py, forward only.  For every
+Port of texgs/kernels/uvtex_raster.py.  For every
 pixel-Gaussian intersection the color is
     color = max(0, 0.5 + SH_rest(view dir)) + C0 * tex(uv*)
     uv*   = normalize(uv_c + J (x* - mu))
@@ -11,12 +11,19 @@ and tex is a bilinear 6-face cubemap fetch in SH0 space.
 The per-pixel color splits into a per-Gaussian part (the SH residual,
 blended like any channel) and the per-intersection texture term, which is
 computed from each pixel's list of its first ``m`` contributors (the
-M-list).  On the render path two CUDA kernels carry it:
+M-list).  The blend and the M-lists take one of two paths
+(``resolve_backends``):
 
-  * kernels.uvtex_fused: blend channels + M-lists in one pass over each
-    tile's depth-sorted pairs (plain version: ``mlist_scan`` there);
-  * kernels.tex_term: the texture term from the M-lists (plain version:
-    ``mlist_tex_term`` there).
+  * fused (texgs's ``auto`` and ``fused``): kernels.uvtex_fused, blend
+    channels + M-lists in one pass over each tile's depth-sorted pairs
+    (kernel A; plain version ``mlist_scan`` there);
+  * two-kernel (texgs's ``pallas`` and ``scan``): kernels.raster blends the
+    channels (kernel 1; plain version ``raster_scan``) and
+    kernels.uvtex_mlist writes the M-lists from the same pairs (kernel 2;
+    plain version ``mlist_only_scan``).
+
+Either way kernels.tex_term computes the texture term from the M-lists
+(kernel B; plain version ``mlist_tex_term`` there).
 """
 
 from __future__ import annotations
@@ -160,14 +167,48 @@ def tail_tex_term(mlist: torch.Tensor, t_final: torch.Tensor,
     return tiles_to_image(C0 * w_tail[..., None] * tex, height, width)
 
 
+# texgs's backend names -> the port's path for the blend and the M-lists
+_PATHS = {"auto": "fused", "fused": "fused", "pallas": "two_kernel",
+          "scan": "two_kernel"}
+TEX_BACKENDS = ("auto", "xla", "textile")
+
+
+def resolve_backends(backend: str = "auto", tex_backend: str = "auto"):
+    """texgs's ``backend`` and ``tex_backend`` (texgs uvtex_raster.py:421)
+    -> the port's path for the blend and the M-lists, ``"fused"`` or
+    ``"two_kernel"``.
+
+    ``auto`` and ``fused`` take the fused path (kernel A); ``pallas`` and
+    ``scan``, which texgs runs as two passes (its Pallas kernels or their
+    XLA twins), take the two-kernel path (kernels 1 and 2); ``reference``,
+    texgs's dense oracle, is not ported.  Every ``tex_backend`` takes the
+    exact texture term of kernel B: texgs's ``textile`` is a windowed
+    approximation of that same term (ROADMAP.md queue 2, item 4), and its
+    ``xla`` is the term itself."""
+    if backend == "reference":
+        raise NotImplementedError("backend 'reference' (texgs's dense "
+                                  "oracle) is not ported")
+    if backend not in _PATHS:
+        raise ValueError(f"unknown backend {backend!r}; one of "
+                         f"{sorted(_PATHS)}")
+    if tex_backend not in TEX_BACKENDS:
+        raise ValueError(f"unknown tex_backend {tex_backend!r}; one of "
+                         f"{list(TEX_BACKENDS)}")
+    return _PATHS[backend]
+
+
 def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
                     uvs, grad_uvs, texture, shs, active_sh_degree: int,
                     camera: Camera, bg: torch.Tensor, m: int = 32,
                     filter_mode: str = "bilinear", with_no_sh: bool = False,
-                    m_tail: bool = False) -> RasterOutput:
-    """Full UV-texture rasterization (texgs backend 'fused' with the exact
-    texture term).
+                    m_tail: bool = False, backend: str = "auto",
+                    tex_backend: str = "auto") -> RasterOutput:
+    """Full UV-texture rasterization with the exact texture term.
 
+    backend, tex_backend: texgs's names (``resolve_backends``): the fused
+    path (kernel A) for ``auto`` and ``fused``, the two-kernel path
+    (kernels 1 and 2) for ``pallas`` and ``scan``; kernel B's exact
+    texture term for every ``tex_backend``.
     proj must carry zero colors (the base SH residual is injected here).
     with_no_sh: also return ``image_no_sh``, the texture-only image a
     second rasterization at active_sh_degree=0 would give.  The
@@ -176,9 +217,12 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
     channels and is subtracted from the composited image.  The kernel thus
     sees F = 10 blend channels with the no-SH image, else F = 7.
     """
+    from texgs_torch.kernels.raster import raster_pairs
     from texgs_torch.kernels.tex_term import tex_term
     from texgs_torch.kernels.uvtex_fused import fused_pairs
+    from texgs_torch.kernels.uvtex_mlist import mlist_pairs
 
+    path = resolve_backends(backend, tex_backend)
     base_colors = residual_sh_colors(shs, xyz, torch.as_tensor(
         camera.camera_center, device=xyz.device), active_sh_degree)
     proj = proj._replace(colors=base_colors)
@@ -193,9 +237,14 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
     height, width = camera.height, camera.width
     pairs = build_pairs(proj.means2d, proj.depths, proj.radii, height, width)
     table = build_gauss_table(proj, extra_attrs)
-    tiles_out, t_final, mlist, _ = fused_pairs(
-        table, build_uv_rows(tables), pairs, ray_constants(camera),
-        grid_shape(height, width)[1], m)
+    uv_rows, rays = build_uv_rows(tables), ray_constants(camera)
+    gx = grid_shape(height, width)[1]
+    if path == "fused":
+        tiles_out, t_final, mlist, _ = fused_pairs(table, uv_rows, pairs,
+                                                   rays, gx, m)
+    else:
+        tiles_out, t_final, _ = raster_pairs(table, pairs, gx)
+        mlist = mlist_pairs(table, uv_rows, pairs, rays, gx, m)
     base = assemble_image(tiles_out, t_final, height, width, bg, n_extra)
     tex_img = tex_term(mlist, texture, height, width, filter_mode)
     if m_tail:

@@ -31,14 +31,17 @@ def uv_tex_render(viewpoint_camera: Camera, *,
                   m: int = 32,
                   filter_mode: str = "bilinear",
                   with_no_sh: bool = False,
-                  m_tail: bool = False) -> dict:
+                  m_tail: bool = False,
+                  backend: str = "auto",
+                  tex_backend: str = "auto") -> dict:
     """Render one view with per-intersection UV-mapped cubemap appearance.
 
     uvs: (N, 3) unit-sphere UV centers; grad_uvs: (N, 9) flattened
     duv/dxyz Jacobians (constants); texture: (6, R, R, 3) cubemap in SH0
     space; shs: (N, K-1, 3) view-dependent residual SH (degrees >= 1).
     with_no_sh: also return ``render_no_sh``, the texture-only image,
-    from the same blend pass.
+    from the same blend pass.  backend, tex_backend: texgs's names, which
+    pick the fused or the two-kernel path (uvtex_raster.resolve_backends).
     """
     cam = viewpoint_camera
     dev = xyz.device
@@ -56,7 +59,8 @@ def uv_tex_render(viewpoint_camera: Camera, *,
     out = rasterize_uvtex(
         proj, scaling, rotation, xyz, uvs, grad_uvs, texture, shs,
         active_sh_degree, cam, bg_color, m=m, filter_mode=filter_mode,
-        with_no_sh=with_no_sh, m_tail=m_tail)
+        with_no_sh=with_no_sh, m_tail=m_tail, backend=backend,
+        tex_backend=tex_backend)
 
     return {
         "render": out.image,

@@ -6,7 +6,8 @@ in SH0 space + optional per-Gaussian residual SH (degrees >= 1; the DC term
 comes from the texture).  The model renders (``visual_step``), edits the
 texture (``change_texture``) and trains: ``compute_loss`` runs one step
 (render, the gated stage-3 losses, whose inverse term runs the hash-grid
-gather, the backward through kernels A' and B', and the three Adams:
+gather, the backward through kernels A' and B' (with ``model_cfg.backend``
+``pallas`` or ``scan``: 1', 2' and B'), and the three Adams:
 Gaussians, UV nets + geo embedding, texture), ``optimize_step`` the
 per-iteration bookkeeping (min-scale reset, SH-degree steps, the UV step
 count).
@@ -39,6 +40,7 @@ from texgs_torch.config import Cfg, in_range
 from texgs_torch.core.camera import Camera, ground_truth
 from texgs_torch.kernels.cubemap import (cross_to_faces, cubemap_to_latlong,
                                          faces_to_cross)
+from texgs_torch.kernels.uvtex_raster import resolve_backends
 from texgs_torch.nets.uv_net import InvUVNet, UVNet
 from texgs_torch.render.uv_tex_render import uv_tex_render
 from texgs_torch.train import optim
@@ -150,6 +152,10 @@ class TextureGaussian3D:
                 "TextureGaussian3D requires an MLP-only uv_net_cfg (no "
                 "pre_mlp_cfg.hash_grid_cfg): the stage-3 UV Jacobian is a "
                 "hand-rolled forward-mode pass through the MLP chain.")
+        # texgs's backend switches (uvtex_raster.resolve_backends), checked
+        # here so a config the port cannot render fails on construction
+        resolve_backends(cfg.get_or("backend", "auto"),
+                         cfg.get_or("tex_backend", "auto"))
         seed = int(cfg.get_or("seed", 2))
         if generator is None:
             generator = torch.Generator(device="cpu").manual_seed(seed)
@@ -258,7 +264,9 @@ class TextureGaussian3D:
             m=int(self.cfg.get_or("uvtex_m", 32)),
             filter_mode=self.cfg.tex_cfg.get_or("filter_mode", "bilinear"),
             with_no_sh=with_no_sh,
-            m_tail=bool(self.cfg.get_or("uvtex_m_tail", False)))
+            m_tail=bool(self.cfg.get_or("uvtex_m_tail", False)),
+            backend=self.cfg.get_or("backend", "auto"),
+            tex_backend=self.cfg.get_or("tex_backend", "auto"))
 
     # ---------------------------------------------------------- training
     def compute_loss(self, cur_iter: int, total_iter: int, viewpoint: Camera,
