@@ -31,16 +31,25 @@ one card.  Phases, in order; any failure exits non-zero:
                 (image, alpha as alpha_mask, normals), training starts from
                 the chessboard retexture at iteration 2501, where every
                 prod loss term is on and all three Adams step.  One step
-                captures the arguments each backward kernel and the hash
-                gather get; then STEPS steps are counted: every loss and
-                parameter must stay finite, the last 5 steps' mean loss
-                must lie below the first 5's, and kernels A, A', B, B' and
-                the hash gather must each launch once a step;
-  8. train kernels -- A', B' and the hash gather against their plain
-                versions on the captured arguments;
-  9. train timings -- the step's median time, each new kernel's time,
-                plain time, bound and (hash gather) library time, and one
-                step under torch.profiler;
+                captures the arguments each backward kernel gets (the hash
+                grid's: its table, points and output cotangent); then
+                STEPS steps are counted: every loss and parameter must stay
+                finite, the last 5 steps' mean loss must lie below the
+                first 5's, and kernels A, A', B, B', the fused hash encode
+                K5' and its backward K5'' must each launch once a step (the
+                K5 gather never);
+  8. train kernels -- A' and B' against their plain versions on the
+                captured arguments;
+  9. train timings -- the step's median time, each kernel's time, plain
+                time and bound, one step under torch.profiler (its device
+                launches); then K5', K5'' and the K5 gather on the
+                captured hash-grid arguments: the corners K5' picks (bit
+                for bit), its features and the gradients of K5'' against
+                their plain versions, the gather on the step's own corner
+                indices; their times beside their plain versions, bounds
+                and library calls (the gather as table[level, idx], the
+                scatter as index_put_); one HashGrid call's device launches
+                (at most 6) beside the plain chain's;
  10. stage-1 setup -- configs/prod_stage1.yaml on its checker scene at full
                 width: 50,000 points of textured_sphere_point_cloud(seed 0),
                 800x600; the ground truth is 8 spiral views of that cloud at
@@ -61,7 +70,8 @@ one card.  Phases, in order; any failure exits non-zero:
                 then extract_pcd to 16,384 points), UVMapGaussian3D of
                 configs/prod_uv_map.yaml trained 1 + STAGE2_STEPS steps over
                 the 8 views: finite, the loss falling, kernel 1 once per
-                camera (the render cache), the hash gather once a step;
+                camera (the render cache), K5' and K5'' once a step; one
+                step under torch.profiler (its device launches);
  15. driver -- driver.train through the port's command line on
                 configs/synthetic_smoke.yaml cut to 150 iterations
                 (densification at 100), then configs/synthetic_uv_map.yaml
@@ -75,7 +85,7 @@ one card.  Phases, in order; any failure exits non-zero:
                 launched once a view and A never;
  17. two-kernel training -- 1 + STEPS steps of phase 7's joint phase on
                 that path: finite, the loss falling, kernels 1, 1', 2, 2',
-                B, B' and the hash gather once a step; the capture step's
+                B, B', K5' and K5'' once a step; the capture step's
                 table and uv-row gradients (1' + 2') against kernel A''s on
                 the same cotangents, by column group; 2' against its plain
                 version; times of 2, 2' and 1 at F = 10 with their plain
@@ -87,8 +97,8 @@ one card.  Phases, in order; any failure exits non-zero:
                 as a process of its own, asked for one /frame over HTTP:
                 finite metrics, every PNG read back, one frame.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with one entry per kernel
+(eleven); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -136,6 +146,8 @@ MODEL_CFG = {
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
+# GPU cycles the stream spins before a queued timing (about 2 ms)
+QUEUE_CYCLES = 4_000_000
 # f32 operations of kernel A per evaluated (pixel, pair) besides the
 # 2 * F of the blend, per written M-list slot; of kernel B per live slot
 OPS_A_EVAL = 16
@@ -247,19 +259,37 @@ def timed_once(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def median_ms(torch, fn, reps=REPS):
-    """Median of `reps` CUDA-event timings of fn(), after one warm-up."""
+def median_ms(torch, fn, reps=REPS, queued=False):
+    """Median of `reps` CUDA-event timings of fn(), after one warm-up.
+
+    Without `queued` the start event runs as soon as it is recorded, so the
+    time includes the host's work in fn before (and between) its launches:
+    a view's or a step's time.  With `queued` the stream first spins for
+    QUEUE_CYCLES, long enough for the host to enqueue a kernel wrapper's
+    work behind the start event, so the time is the device's alone from
+    the first launch to the last (host time beyond the spin still shows)."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def kernel_ms(torch, fn, reps=REPS):
+    """(device ms, host-launched ms) of a kernel wrapper's call: the
+    median_ms with `queued` (the kernel's time, the JSON line's "ms"), and
+    without (the wrapper's host time included, as this script timed its
+    kernels before it had the queued reading)."""
+    return (median_ms(torch, fn, reps, queued=True),
+            median_ms(torch, fn, reps))
 
 
 def check_close(torch, name, got, want, atol, rtol=0.0, max_off=0,
@@ -328,17 +358,18 @@ def swapped(module, name, fn):
 
 
 @contextlib.contextmanager
-def recording(module, name, seen):
+def recording(module, name, seen, clone=False):
     """module.name records its positional arguments (tensors detached from
-    any graph) in seen[name] and calls through, inside the block, which
-    gets the recorder.  A kernel wrapper counts its launches through its
+    any graph, and copied with `clone`, for a parameter that a later step
+    updates in place) in seen[name] and calls through, inside the block,
+    which gets the recorder.  A kernel wrapper counts its launches through its
     module's global name, so while the recorder is swapped in for a kernel
     wrapper, the recorder's `launches` counts that kernel's launches."""
     fn = getattr(module, name)
 
     def wrapper(*args):
-        seen[name] = tuple(a.detach() if hasattr(a, "detach") else a
-                           for a in args)
+        seen[name] = tuple((a.detach().clone() if clone else a.detach())
+                           if hasattr(a, "detach") else a for a in args)
         return fn(*args)
     wrapper.launches = 0
     with swapped(module, name, wrapper):
@@ -441,7 +472,8 @@ def profile_device(torch, what, fn, median, top=12):
     """torch.profiler over one call of fn (after one unprofiled call): the
     device's busy time, as a share of the profiled call's wall time and of
     `median` (fn's median without the profiler), and by kernel and by
-    operator."""
+    operator.  Returns the call's device launches (None if the profiler saw
+    no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -449,17 +481,22 @@ def profile_device(torch, what, fn, median, top=12):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the trace can miss a profile's first device events: a spin
+        # kernel, not counted, goes first (see device_launches)
+        torch.cuda._sleep(QUEUE_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and "spin_kernel" not in e.key]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     if not kernels or busy_ms <= 0:
         log(f"[profile] {what}: torch.profiler saw no device time: device "
             "busy share not measured")
-        return
+        return None
     log(f"[profile] {what} under torch.profiler: wall "
         f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
         f"({busy_ms / wall_ms:.1%} of it, {busy_ms / median:.1%} of the "
@@ -473,6 +510,31 @@ def profile_device(torch, what, fn, median, top=12):
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  op     {e.self_device_time_total / 1e3:9.3f} ms  "
             f"x{e.count:<4d} {e.key[:90]}")
+    return sum(e.count for e in kernels)
+
+
+def device_launches(torch, fn, reps=REPS):
+    """The device operations (kernels, copies, fills) one call of fn()
+    launches, counted by torch.profiler over `reps` calls after one
+    warm-up call: (their number a call, {name: count a call}).  The trace
+    can drop a device event now and then (a profile's first ones most of
+    all), so a spin kernel that is not counted goes first (as in
+    profile_device) and the counts are the mean over the calls, rounded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(QUEUE_CYCLES)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = {e.key: e.count / reps for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key}
+    return round(sum(ops.values())), ops
 
 
 def check_scaled(torch, name, got, want, rel_atol, rtol, max_off=0,
@@ -617,14 +679,157 @@ def check_train_run(torch, what, model, step, counters, expect):
     return launches
 
 
+def hash_counters():
+    """Launch counters of the hash-grid kernels, by JSON name: the fused
+    encode K5' and its backward K5'' run once a step on the main paths; the
+    K5 gather is on none of them (0 a step)."""
+    from texgs_torch.nets import hash_encode as ke
+    from texgs_torch.nets import hash_gather as kh
+
+    return {"hash_encode": ke.hash_encode,
+            "hash_encode_bwd": ke.hash_encode_backward,
+            "hash_gather": kh.hash_gather}
+
+
+def hash_kernel_phase(torch, enc_args, launches):
+    """Kernels K5', K5'' and the K5 gather on the arguments a training
+    step's hash grid got (table, x and the cotangent of its output): each
+    against its plain version (the corners exactly, the values within
+    tolerance), timed beside its plain version, bound and library call; and
+    one HashGrid call's device launches and time beside the plain chain's.
+    Returns their JSON entries, with the main path's `launches`."""
+    from texgs_torch.nets import hash_encode as ke
+    from texgs_torch.nets import hash_gather as kh
+    from texgs_torch.nets.hashgrid import HashGrid
+
+    table, x, g = enc_args[:3]
+    levels, size, n_feat = table.shape
+    n = x.shape[0]
+    log(f"[hash kernels] on the step-{FIRST_ITER} hash grid's arguments: "
+        f"{n} points, {levels} levels of {size} rows of {n_feat} features")
+    with torch.no_grad():
+        out, idx, w = ke.hash_encode_forward(table, x, corners=True)
+        idx_w, w_w = ke.indices_and_weights(x, levels, size)
+        n_idx, n_w = int((idx != idx_w).sum()), int((w != w_w).sum())
+        log(f"  K5' corners: {n_idx} of {idx.numel()} indices and {n_w} "
+            "weights differ from the plain version's")
+        if n_idx or n_w:
+            fail("kernel K5' picked other corners or weights than its plain "
+                 "version")
+        err_f = check_close(torch, "K5' hash encode", out,
+                            ke.encode_plain(table, x), atol=1e-6, rtol=1e-5)
+        got_b = ke.hash_encode_backward(table, x, g)
+        want_b = ke.encode_backward_plain(table, x, g)
+        # the table's atomics and the levels' sum run in another order than
+        # the plain version's: each gradient at 1e-4 of its max |plain|
+        err_b = max(check_scaled(torch, "K5'' d table", got_b[0], want_b[0],
+                                 1e-4, 1e-4),
+                    check_scaled(torch, "K5'' d x", got_b[1], want_b[1],
+                                 1e-4, 1e-4))
+        got_k = kh.hash_gather(table, idx_w)
+        err_k = check_close(torch, "K5 hash gather (the step's corners)",
+                            got_k, kh.gather_plain(table, idx_w), atol=0.0)
+
+        # the library calls: the gather as advanced indexing, and the
+        # plain backward's scatter-add (index_put_) on the same cotangent
+        lvl = torch.arange(levels, device=table.device).repeat_interleave(
+            8)[:, None].expand_as(idx_w)
+        idx64 = idx_w.long()
+        g_rows = (w_w.view(levels, 8, 1, n)
+                  * g.reshape(n, levels, n_feat).permute(1, 2, 0)[:, None])
+        vals = g_rows.reshape(levels * 8, n_feat, n).permute(0, 2, 1)
+        acc = torch.zeros_like(table)
+        f_ms, f_host = kernel_ms(torch, lambda: ke.hash_encode_forward(table, x))
+        f_plain = median_ms(torch, lambda: ke.encode_plain(table, x),
+                            queued=True)
+        lib_gather, lib_gather_host = kernel_ms(torch,
+                                                lambda: table[lvl, idx64])
+        b_ms, b_host = kernel_ms(torch,
+                                 lambda: ke.hash_encode_backward(table, x, g))
+        b_plain = median_ms(torch, lambda: ke.encode_backward_plain(table, x, g),
+                            queued=True)
+        lib_scatter, lib_scatter_host = kernel_ms(torch, lambda: acc.index_put_(
+            (lvl, idx64), vals, accumulate=True))
+        k_ms, k_host = kernel_ms(torch, lambda: kh.hash_gather(table, idx_w))
+        k_plain = median_ms(torch, lambda: kh.gather_plain(table, idx_w),
+                            queued=True)
+
+    # f32 operations per (point, level): the cell (12) and, per corner, the
+    # weight (2) and F multiply-adds; the backward adds per corner the
+    # table row's dot product with g (2F), the three weight derivatives (12)
+    # and the level's scale (3).  The integer hash is not counted.
+    f_bytes = nbytes(x, out, table)
+    f_bound, f_by = bound(f_bytes, n * levels * (12 + 8 * (2 + 2 * n_feat)))
+    b_bytes = nbytes(x, g, table) + nbytes(table, x)  # + d_table, d_x
+    b_bound, b_by = bound(b_bytes,
+                          n * levels * (15 + 8 * (14 + 4 * n_feat)))
+    k_bytes = nbytes(table, idx_w, got_k)
+    k_bound, k_by = bound(k_bytes, 0)
+    log(f"[time] kernel K5' hash_encode: {f_ms:.4f} ms (host-launched "
+        f"{f_host:.4f}), plain {f_plain:.4f} ms, library gather (table[level, "
+        f"idx]) {lib_gather:.4f} ms (host-launched {lib_gather_host:.4f}), "
+        f"bound {f_bound:.5f} ms ({f_by}: {f_bytes / 1e6:.2f} MB)")
+    log(f"[time] kernel K5'' hash_encode_bwd: {b_ms:.4f} ms (host-launched "
+        f"{b_host:.4f}), plain {b_plain:.4f} ms, library scatter (index_put_ "
+        f"of the gather's backward) {lib_scatter:.4f} ms (host-launched "
+        f"{lib_scatter_host:.4f}), bound {b_bound:.5f} ms ({b_by}: "
+        f"{b_bytes / 1e6:.2f} MB)")
+    log(f"[time] kernel K5 hash_gather: {k_ms:.4f} ms (host-launched "
+        f"{k_host:.4f}), plain {k_plain:.4f} ms, library (table[level, idx]) "
+        f"{lib_gather:.4f} ms, bound {k_bound:.5f} ms ({k_by}: "
+        f"{k_bytes / 1e6:.2f} MB)")
+    log(f"  K5' at or below the library gather: {f_ms <= lib_gather}; K5'' "
+        f"at or below the library scatter: {b_ms <= lib_scatter}")
+
+    # one HashGrid call, forward + backward, through the kernels and
+    # through the plain chain, on a copy of the step's table
+    grid = HashGrid(levels, n_feat, size.bit_length() - 1, device=table.device)
+    with torch.no_grad():
+        grid.table.copy_(table)
+    xg = x.clone().requires_grad_(True)
+
+    def fused_call():
+        grid.table.grad = xg.grad = None
+        grid(xg).backward(g)
+
+    def plain_call():
+        grid.table.grad = xg.grad = None
+        ke.encode_plain(grid.table, xg).backward(g)
+
+    n_fused, fused_ops = device_launches(torch, fused_call)
+    n_plain, _ = device_launches(torch, plain_call)
+    call_ms, plain_call_ms = (median_ms(torch, fused_call),
+                              median_ms(torch, plain_call))
+    log(f"[launches] one HashGrid call, forward + backward: {n_fused} device "
+        f"launches, {call_ms:.4f} ms; the plain chain (indices_and_weights, "
+        f"gather_plain, the weighted sum, autograd) {n_plain} launches, "
+        f"{plain_call_ms:.4f} ms")
+    log(f"  a call's device operations (mean of {REPS} calls): " + "; ".join(
+        f"{n:g} x {name[:60]}" for name, n in fused_ops.items()))
+    if n_fused > 6:
+        fail(f"one HashGrid call launched {n_fused} device operations, "
+             "expected at most 6")
+    return [
+        entry("hash_encode", "texgs_torch/csrc/hash_encode.cu",
+              "texgs/nets/pallas_hashgrid.py:63", launches["hash_encode"],
+              f_ms, f_plain, f_bound, f_by, err_f, lib_gather),
+        entry("hash_encode_bwd", "texgs_torch/csrc/hash_encode_bwd.cu",
+              "texgs/nets/pallas_hashgrid.py:103", launches["hash_encode_bwd"],
+              b_ms, b_plain, b_bound, b_by, err_b, lib_scatter),
+        entry("hash_gather", "texgs_torch/csrc/hash_gather.cu",
+              "texgs/nets/pallas_hashgrid.py:63", launches["hash_gather"],
+              k_ms, k_plain, k_bound, k_by, err_k, lib_gather),
+    ]
+
+
 def train_phases(torch, model, cams, gt_views):
     """Phases 7-9 (see the module docstring).  Returns (the JSON entries of
-    kernels A', B' and the hash gather, the step's median ms)."""
+    kernels A', B', K5', K5'' and the K5 gather, the step's median ms, its
+    device launches)."""
     from texgs_torch.kernels import tex_term as kt
     from texgs_torch.kernels import uvtex_fused as kf
     from texgs_torch.kernels.cubemap import sample_cubemap
-    from texgs_torch.nets import hash_gather as kh
-    from texgs_torch.nets import hashgrid
+    from texgs_torch.nets import hash_encode as ke
 
     # ------------------------------------------------------------ 7. train
     step = stage3_stepper(model, cams, gt_views)
@@ -632,10 +837,11 @@ def train_phases(torch, model, cams, gt_views):
     seen = {}
     with recording(kf, "fused_pairs_backward", seen), \
             recording(kt, "tex_term_backward", seen), \
-            recording(hashgrid, "hash_gather", seen):
+            recording(ke, "hash_encode_backward", seen, clone=True):
         loss, stats = step(FIRST_ITER)
     torch.cuda.synchronize()
-    if set(seen) != {"fused_pairs_backward", "tex_term_backward", "hash_gather"}:
+    if set(seen) != {"fused_pairs_backward", "tex_term_backward",
+                     "hash_encode_backward"}:
         fail(f"a training step called {sorted(seen)}")
     log(f"[train] capture step {FIRST_ITER}: loss {loss.item():.5f}, "
         f"{time.perf_counter() - t0:.2f} s (first step, kernels warm up); "
@@ -648,15 +854,14 @@ def train_phases(torch, model, cams, gt_views):
 
     counters = {"uvtex_fused": kf.fused_pairs, "tex_term": kt.tex_term,
                 "uvtex_fused_bwd": kf.fused_pairs_backward,
-                "tex_term_bwd": kt.tex_term_backward,
-                "hash_gather": kh.hash_gather}
-    launches = check_train_run(torch, "train", model, step, counters,
-                               dict.fromkeys(counters, STEPS))
+                "tex_term_bwd": kt.tex_term_backward, **hash_counters()}
+    launches = check_train_run(
+        torch, "train", model, step, counters,
+        {name: 0 if name == "hash_gather" else STEPS for name in counters})
 
     # --------------------------------------------------- 8. train kernels
     a_args = seen["fused_pairs_backward"]
     b_args = seen["tex_term_backward"]
-    k_args = seen["hash_gather"]
     table, uv_rows, pairs, rays, gx, m = a_args[:6]
     g_blend, g_t_final, g_mlist = a_args[9:]
     mlist, texture, g_img, height, width = b_args[:5]
@@ -695,9 +900,6 @@ def train_phases(torch, model, cams, gt_views):
                          want_live[:, 1:], 1e-4, 1e-3))
         if got_b[0][~live][:, 1:].any():
             fail("kernel B' wrote a uv cotangent into a dead slot")
-        got_k = kh.hash_gather(*k_args)
-        want_k = kh.gather_plain(*k_args)
-        err_k = check_close(torch, "hash gather", got_k, want_k, atol=0.0)
 
     # -------------------------------------------------- 9. train timings
     it = [FIRST_ITER + STEPS + 1]
@@ -713,17 +915,11 @@ def train_phases(torch, model, cams, gt_views):
     full_a = (table, uv_rows, pairs, rays, gx, m, *fwd[:3], g_blend, g_t_final,
               g_mlist)
     with torch.no_grad():
-        a_ms = median_ms(torch, lambda: kf.fused_pairs_backward(*full_a))
+        a_ms, a_host = kernel_ms(torch,
+                                 lambda: kf.fused_pairs_backward(*full_a))
         a_plain_ms = median_ms(torch, lambda: kf.mlist_scan_vjp(*a_sub, *cots),
                                reps=3)   # median of 3
-        b_ms = median_ms(torch, lambda: kt.tex_term_backward(*b_args))
-        k_ms = median_ms(torch, lambda: kh.hash_gather(*k_args))
-        k_plain_ms = median_ms(torch, lambda: kh.gather_plain(*k_args))
-        k_table, k_idx = k_args
-        level = torch.arange(k_table.shape[0], device=k_table.device
-                             ).repeat_interleave(k_idx.shape[0] // k_table.shape[0])
-        lvl, idx64 = level[:, None], k_idx.long()
-        k_lib_ms = median_ms(torch, lambda: k_table[lvl, idx64])
+        b_ms, b_host = kernel_ms(torch, lambda: kt.tex_term_backward(*b_args))
 
     n_f = table.shape[1] - 9
     n_eval = int(fwd[3].sum())
@@ -750,21 +946,21 @@ def train_phases(torch, model, cams, gt_views):
     b_bytes = (4 * mlist[..., 0].numel() + 12 * b_live + nbytes(g_img)
                + texels * 12 + nbytes(mlist, texture))
     b_bound, b_by = bound(b_bytes, b_live * OPS_B_BWD_SLOT)
-    k_bytes = nbytes(*k_args) + nbytes(got_k)
-    k_bound, k_by = bound(k_bytes, 0)
     sub = "" if bool(keep.all()) else f" on {int(keep.sum())} of {n_tiles} tiles"
-    log(f"[time] kernel A' uvtex_fused_bwd: {a_ms:.4f} ms, plain "
+    log(f"[time] kernel A' uvtex_fused_bwd: {a_ms:.4f} ms (host-launched "
+        f"{a_host:.4f}), plain "
         f"{a_plain_ms:.3f} ms{sub}, bound {a_bound:.4f} ms ({a_by}: "
         f"{a_bytes / 1e6:.1f} MB, {a_ops / 1e9:.3f} GFLOP; {n_eval} evaluated "
         f"pairs, {slots} slots)")
-    log(f"[time] kernel B' tex_term_bwd: {b_ms:.4f} ms, plain "
+    log(f"[time] kernel B' tex_term_bwd: {b_ms:.4f} ms (host-launched "
+        f"{b_host:.4f}), plain "
         f"{b_plain_ms:.3f} ms (one call), bound {b_bound:.4f} ms ({b_by}: "
         f"{b_bytes / 1e6:.1f} MB incl. {texels} texels touched, {b_live} "
         "live slots)")
-    log(f"[time] kernel K5 hash_gather: {k_ms:.4f} ms, plain {k_plain_ms:.4f} "
-        f"ms, library (table[level, idx]) {k_lib_ms:.4f} ms, bound "
-        f"{k_bound:.5f} ms ({k_by}: {k_bytes / 1e6:.2f} MB)")
-    profile_device(torch, "one training step", timed_step, step_ms)
+    step_launches = profile_device(torch, "one training step", timed_step,
+                                   step_ms)
+    hash_entries = hash_kernel_phase(torch, seen["hash_encode_backward"],
+                                     launches)
 
     return [
         entry("uvtex_fused_bwd", "texgs_torch/csrc/uvtex_fused_bwd.cu",
@@ -774,10 +970,8 @@ def train_phases(torch, model, cams, gt_views):
         entry("tex_term_bwd", "texgs_torch/csrc/tex_term_bwd.cu",
               "texgs/kernels/pallas_textile.py:819", launches["tex_term_bwd"],
               b_ms, b_plain_ms, b_bound, b_by, err_b),
-        entry("hash_gather", "texgs_torch/csrc/hash_gather.cu",
-              "texgs/nets/pallas_hashgrid.py:63", launches["hash_gather"],
-              k_ms, k_plain_ms, k_bound, k_by, err_k, k_lib_ms),
-    ], step_ms
+        *hash_entries,
+    ], step_ms, step_launches
 
 
 def check_kernel_1(torch, got, want):
@@ -981,10 +1175,12 @@ def stage1_phases(torch, device, work_dir):
         "loss + optimize_step)")
     full_b = (table, pairs, gx, *got_1[:2], g_blend, g_t_final)
     with torch.no_grad():
-        ms_1 = median_ms(torch, lambda: kr.raster_pairs_forward(table, pairs, gx))
+        ms_1, host_1 = kernel_ms(
+            torch, lambda: kr.raster_pairs_forward(table, pairs, gx))
         plain_1 = median_ms(torch, lambda: kr.raster_scan(table, pairs, gx),
                             reps=3)
-        ms_1b = median_ms(torch, lambda: kr.raster_pairs_backward(*full_b))
+        ms_1b, host_1b = kernel_ms(
+            torch, lambda: kr.raster_pairs_backward(*full_b))
         plain_1b = median_ms(torch, lambda: kr.raster_scan_vjp(
             table, sub, gx, *cots), reps=3)
     n_f = 7
@@ -1001,11 +1197,13 @@ def stage1_phases(torch, device, work_dir):
     ops_1b = n_eval * (OPS_A_BWD_EVAL + 3 * n_f)
     bound_1b, by_1b = bound(bytes_1b, ops_1b)
     sub_note = "" if t_sub == n_tiles else f" on {t_sub} of {n_tiles} tiles"
-    log(f"[time] kernel 1 raster: {ms_1:.4f} ms, plain {plain_1:.3f} ms, "
+    log(f"[time] kernel 1 raster: {ms_1:.4f} ms (host-launched "
+        f"{host_1:.4f}), plain {plain_1:.3f} ms, "
         f"bound {bound_1:.4f} ms ({by_1}: {bytes_1 / 1e6:.1f} MB, "
         f"{n_eval * (OPS_A_EVAL + 2 * n_f) / 1e9:.3f} GFLOP; {n_eval} "
         "evaluated pairs)")
-    log(f"[time] kernel 1' raster_bwd: {ms_1b:.4f} ms, plain {plain_1b:.3f} "
+    log(f"[time] kernel 1' raster_bwd: {ms_1b:.4f} ms (host-launched "
+        f"{host_1b:.4f}), plain {plain_1b:.3f} "
         f"ms{sub_note}, bound {bound_1b:.4f} ms ({by_1b}: "
         f"{bytes_1b / 1e6:.1f} MB, {ops_1b / 1e9:.3f} GFLOP)")
     profile_device(torch, "one stage-1 step", timed_step, step_ms)
@@ -1021,11 +1219,11 @@ def stage1_phases(torch, device, work_dir):
 
 
 def stage2_phase(torch, device, stage1, views, work_dir):
-    """Phase 14 (see the module docstring)."""
+    """Phase 14 (see the module docstring).  Returns the step's device
+    launches."""
     from texgs_torch.config import Cfg
     from texgs_torch.io import checkpoint as ckpt
     from texgs_torch.kernels import raster as kr
-    from texgs_torch.nets import hash_gather as kh
     from texgs_torch.tools.extract_pcd import extract_pcd
     from texgs_torch.train.optim import flatten_tree
     from texgs_torch.train.uv_map_gaussian3d import UVMapGaussian3D
@@ -1057,7 +1255,8 @@ def stage2_phase(torch, device, stage1, views, work_dir):
                     if k.startswith("L")))
     if set(stats) != {"Linv", "Lchamfer", "Linv2", "total_loss"}:
         fail(f"stage 2 computed {sorted(stats)}")
-    for fn in (kr.raster_pairs, kh.hash_gather):
+    counters = {"raster": kr.raster_pairs, **hash_counters()}
+    for fn in counters.values():
         fn.launches = 0
     cached = len(model._depth_alpha_cache)
     losses = []
@@ -1070,17 +1269,19 @@ def stage2_phase(torch, device, stage1, views, work_dir):
     torch.cuda.synchronize()
     s = time.perf_counter() - t0
     new_cams = len(model._depth_alpha_cache) - cached
-    launches = {"raster": kr.raster_pairs.launches,
-                "hash_gather": kh.hash_gather.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     log(f"[stage2] {STAGE2_STEPS} steps in {s:.3f} s ({s / STAGE2_STEPS * 1e3:.1f} "
         f"ms a step incl. {new_cams} first renders); launches {launches}")
     log("  total loss by step: " + ", ".join(f"{v:.5f}" for v in losses))
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     log(f"  mean loss of the first 5 steps {first:.5f}, of the last 5 "
         f"{last:.5f} ({(last - first) / first:+.2%})")
-    if launches != {"raster": new_cams, "hash_gather": STAGE2_STEPS}:
+    expect = {"raster": new_cams, "hash_encode": STAGE2_STEPS,
+              "hash_encode_bwd": STAGE2_STEPS, "hash_gather": 0}
+    if launches != expect:
         fail(f"stage 2 launched {launches}; expected kernel 1 once for each "
-             f"of the {new_cams} cameras first seen and K5 once a step")
+             f"of the {new_cams} cameras first seen, K5' and K5'' once a "
+             "step and the K5 gather never")
     for name, a in flatten_tree(model.state_dict()["net_state"]).items():
         if not np.isfinite(a).all():
             fail(f"stage-2 parameter {name} is not finite after training")
@@ -1095,7 +1296,7 @@ def stage2_phase(torch, device, stage1, views, work_dir):
     step_ms = median_ms(torch, timed_step)
     log(f"[time] stage-2 step: {step_ms:.3f} ms (median of {REPS}, cached "
         "renders)")
-    profile_device(torch, "one stage-2 step", timed_step, step_ms)
+    return profile_device(torch, "one stage-2 step", timed_step, step_ms)
 
 
 def driver_phase(work_dir, device):
@@ -1207,7 +1408,6 @@ def two_kernel_phases(torch, device, sd0, cams, views, retextured, chess,
     from texgs_torch.kernels import uvtex_fused as kf
     from texgs_torch.kernels import uvtex_mlist as km
     from texgs_torch.kernels.tile_raster import N_FIXED_F, TABLE_FIXED
-    from texgs_torch.nets import hash_gather as kh
     from texgs_torch.train.texture_gaussian3d import from_jax_state
 
     # ------------------------------------------------ 16. two-kernel render
@@ -1263,10 +1463,12 @@ def two_kernel_phases(torch, device, sd0, cams, views, retextured, chess,
 
     with torch.no_grad():
         render_ms = median_ms(torch, lambda: model.render(cams[0]))
-        ms_1 = median_ms(torch, lambda: kr.raster_pairs_forward(table, pairs, gx))
+        ms_1, host_1 = kernel_ms(
+            torch, lambda: kr.raster_pairs_forward(table, pairs, gx))
         plain_1 = median_ms(torch, lambda: kr.raster_scan(table, pairs, gx),
                             reps=3)
-        ms_2 = median_ms(torch, lambda: km.mlist_pairs_forward(*m_args))
+        ms_2, host_2 = kernel_ms(torch,
+                                 lambda: km.mlist_pairs_forward(*m_args))
         plain_2 = median_ms(torch, lambda: km.mlist_only_scan(*m_args), reps=3)
         eval_2 = mlist_evaluated(torch, table, pairs, m_args[3], gx, m)
     n_eval = int(got_1[2].sum())
@@ -1282,10 +1484,12 @@ def two_kernel_phases(torch, device, sd0, cams, views, retextured, chess,
     bound_2, by_2 = bound(bytes_2, eval_2 * OPS_A_EVAL + live * OPS_A_SLOT)
     log(f"[time] two-kernel render of view 0: {render_ms:.3f} ms (median of "
         f"{REPS}; the fused path's {fused_render_ms:.3f} ms)")
-    log(f"[time] kernel 1 raster at F = {n_f}: {ms_1:.4f} ms, plain "
+    log(f"[time] kernel 1 raster at F = {n_f}: {ms_1:.4f} ms (host-launched "
+        f"{host_1:.4f}), plain "
         f"{plain_1:.3f} ms, bound {bound_1:.4f} ms ({by_1}: "
         f"{bytes_1 / 1e6:.1f} MB, {n_eval} evaluated pairs)")
-    log(f"[time] kernel 2 uvtex_mlist: {ms_2:.4f} ms, plain {plain_2:.3f} ms, "
+    log(f"[time] kernel 2 uvtex_mlist: {ms_2:.4f} ms (host-launched "
+        f"{host_2:.4f}), plain {plain_2:.3f} ms, "
         f"bound {bound_2:.4f} ms ({by_2}: {bytes_2 / 1e6:.1f} MB, {eval_2} "
         f"evaluated pairs, {live} live slots)")
 
@@ -1306,10 +1510,10 @@ def two_kernel_phases(torch, device, sd0, cams, views, retextured, chess,
                 "uvtex_mlist": km.mlist_pairs,
                 "uvtex_mlist_bwd": km.mlist_pairs_backward,
                 "tex_term": kt.tex_term, "tex_term_bwd": kt.tex_term_backward,
-                "hash_gather": kh.hash_gather, "uvtex_fused": kf.fused_pairs,
+                **hash_counters(), "uvtex_fused": kf.fused_pairs,
                 "uvtex_fused_bwd": kf.fused_pairs_backward}
-    expect = {name: 0 if name.startswith("uvtex_fused") else STEPS
-              for name in counters}
+    expect = {name: 0 if name.startswith("uvtex_fused") or name == "hash_gather"
+              else STEPS for name in counters}
     train_launches = check_train_run(torch, "two-kernel train", model, step,
                                      counters, expect)
 
@@ -1359,10 +1563,19 @@ def two_kernel_phases(torch, device, sd0, cams, views, retextured, chess,
     log(f"[time] two-kernel training step: {step_ms:.3f} ms (median of {REPS}; "
         f"the fused path's {fused_step_ms:.3f} ms)")
     with torch.no_grad():
-        ms_2b = median_ms(torch, lambda: km.mlist_pairs_backward(*b_args))
+        ms_2b, host_2b = kernel_ms(
+            torch, lambda: km.mlist_pairs_backward(*b_args))
         plain_2b = median_ms(torch, lambda: km.mlist_only_scan_vjp(*sub, g_sub),
                              reps=3)
         eval_2b = mlist_evaluated(torch, table, pairs, rays, gx, m)
+        # kernel 1' at F = 10 on the same step's arguments
+        ms_1b, host_1b = kernel_ms(torch, lambda: kr.raster_pairs_backward(
+            table, pairs, gx, blend, t_final, g_blend, g_t_final))
+        cots_1b = [torch.where(keep.view(-1, *[1] * (c.dim() - 1)), c,
+                               0.0).contiguous() for c in (g_blend, g_t_final)]
+        plain_1b = median_ms(torch, lambda: kr.raster_scan_vjp(
+            table, sub[2], gx, *cots_1b), reps=3)
+        eval_1b = int(kr.raster_pairs_forward(table, pairs, gx)[2].sum())
     live = int((mlist[..., 0] != 0).sum())
     # what 2' must move: the table, uv rows and pair list, every slot's w
     # (4 B), the live slots' cotangents (16 B) and the two gradients it
@@ -1373,7 +1586,21 @@ def two_kernel_phases(torch, device, sd0, cams, views, retextured, chess,
     bound_2b, by_2b = bound(bytes_2b, eval_2b * OPS_A_BWD_EVAL
                             + live * OPS_A_BWD_SLOT)
     sub_note = "" if bool(keep.all()) else f" on {int(keep.sum())} tiles"
-    log(f"[time] kernel 2' uvtex_mlist_bwd: {ms_2b:.4f} ms, plain "
+    # kernel 1' reads the table, the pair list, the channels and T_final
+    # with their cotangents, and writes the table gradient; 40 + 3F ops an
+    # evaluated entry
+    bytes_1b = nbytes(table, pairs.pair_gauss, pairs.tile_start,
+                      pairs.tile_end, blend, t_final, g_blend, g_t_final,
+                      table)
+    ops_1b = eval_1b * (OPS_A_BWD_EVAL + 3 * n_f)
+    bound_1b, by_1b = bound(bytes_1b, ops_1b)
+    log(f"[time] kernel 1' raster_bwd at F = {n_f}: {ms_1b:.4f} ms "
+        f"(host-launched {host_1b:.4f}), plain "
+        f"{plain_1b:.3f} ms{sub_note}, bound {bound_1b:.4f} ms ({by_1b}: "
+        f"{bytes_1b / 1e6:.1f} MB, {ops_1b / 1e9:.3f} GFLOP; {eval_1b} "
+        "evaluated pairs)")
+    log(f"[time] kernel 2' uvtex_mlist_bwd: {ms_2b:.4f} ms (host-launched "
+        f"{host_2b:.4f}), plain "
         f"{plain_2b:.3f} ms{sub_note}, bound {bound_2b:.4f} ms ({by_2b}: "
         f"{bytes_2b / 1e6:.1f} MB, {eval_2b} evaluated pairs, {live} live "
         "slots)")
@@ -1666,9 +1893,9 @@ def main() -> int:
             log(f"[time] view {i}: visual_step {t:.3f} ms (median of {REPS})")
         render_ms = median_ms(torch, lambda: model.render(cams[0]))
         log(f"[time] view 0: render (no envmap / cube cross) {render_ms:.3f} ms")
-        a_ms = median_ms(torch, lambda: fused_pairs(*a_args))
+        a_ms, a_host = kernel_ms(torch, lambda: fused_pairs(*a_args))
         a_plain_ms = median_ms(torch, lambda: mlist_scan(*a_args))
-        b_ms = median_ms(torch, lambda: tex_term(*b_args))
+        b_ms, b_host = kernel_ms(torch, lambda: tex_term(*b_args))
         b_plain_ms = median_ms(torch, lambda: mlist_tex_term(*b_args))
 
         # bounds from this run's inputs
@@ -1688,10 +1915,12 @@ def main() -> int:
         b_bytes = nbytes(mlist) + texels * 12 + nbytes(got_b)
         b_ops = live_slots * OPS_B_SLOT
         b_bound, b_by = bound(b_bytes, b_ops)
-    log(f"[time] kernel A uvtex_fused: {a_ms:.4f} ms, plain {a_plain_ms:.3f} ms, "
+    log(f"[time] kernel A uvtex_fused: {a_ms:.4f} ms (host-launched "
+        f"{a_host:.4f}), plain {a_plain_ms:.3f} ms, "
         f"bound {a_bound:.4f} ms ({a_bytes / 1e6:.1f} MB, "
         f"{a_ops / 1e9:.3f} GFLOP)")
-    log(f"[time] kernel B tex_term: {b_ms:.4f} ms, plain {b_plain_ms:.3f} ms, "
+    log(f"[time] kernel B tex_term: {b_ms:.4f} ms (host-launched "
+        f"{b_host:.4f}), plain {b_plain_ms:.3f} ms, "
         f"bound {b_bound:.4f} ms ({b_bytes / 1e6:.1f} MB incl. {texels} "
         f"texels touched, {live_slots} live slots)")
 
@@ -1707,7 +1936,7 @@ def main() -> int:
         profile_device(torch, "one render of view 0",
                        lambda: model.render(cams[0]), render_ms)
 
-    entries, step_ms = train_phases(torch, model, cams, views)
+    entries, step_ms, step3_launches = train_phases(torch, model, cams, views)
     kernels += entries
     del model, a_args, b_args, got_a, want_a, got_b, want_b
     torch.cuda.empty_cache()
@@ -1715,7 +1944,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work_dir:
         stage1, s1_views, entries = stage1_phases(torch, device, work_dir)
         kernels += entries
-        stage2_phase(torch, device, stage1, s1_views, work_dir)
+        step2_launches = stage2_phase(torch, device, stage1, s1_views,
+                                      work_dir)
         del stage1, s1_views
         torch.cuda.empty_cache()
         driver_phase(work_dir, device)
@@ -1726,6 +1956,8 @@ def main() -> int:
         del views, retextured
         torch.cuda.empty_cache()
         tools_phase(torch, device, model, work_dir)
+    log(f"[launches] device launches of one step under torch.profiler: "
+        f"stage 3 {step3_launches}, stage 2 {step2_launches}")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,13 @@ column group (quad, channels, uv rows) at atol 1e-3 max|plain| + rtol
 1e-3, with at most 4 Gaussians beyond (the stop flips above move whole
 entries); B' at tests/test_textile.py's tolerances (d texture 1e-5 +
 1e-3 |x|, live-slot d M-lists 3e-5 + 1e-3 |x|); the hash gather exactly.
+The fused hash encode K5' picks its corners and weights exactly as its
+plain version does (compared bit for bit) and sums them at atol 1e-6 /
+rtol 1e-5.  Its backward K5'' adds the table gradient with atomics, at
+1e-5 + 1e-4 |x|; the point gradient sums levels in another order than the
+plain version, and its terms (res_l g . row, ~10^3 at a table in [-1, 1])
+cancel, so it is held at tests/test_hashgrid.py's query tolerance, 1e-4 +
+1e-4 |x|.
 Kernels 1 and 1' (the stage-1/2 blend, and the two-kernel stage-3 blend at
 F = 10) are held as A and A' are, without the M-list and uv rows; kernels
 2 and 2' (the two-kernel stage-3 M-lists) as A and A' are, without the
@@ -48,6 +55,11 @@ from texgs_torch.kernels.uvtex_mlist import (mlist_only_scan,
                                              mlist_only_scan_vjp, mlist_pairs,
                                              mlist_pairs_backward)
 from texgs_torch.nets.hash_gather import gather_plain, hash_gather
+from texgs_torch.nets.hash_encode import (encode_backward_plain, encode_plain,
+                                          hash_encode, hash_encode_backward,
+                                          hash_encode_forward,
+                                          indices_and_weights,
+                                          level_resolution)
 
 
 @pytest.fixture
@@ -289,8 +301,12 @@ def assert_a_backward_close(got, want, max_off=4):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n_extra", [(8, 3), (32, 3), (32, 0)])
+@pytest.mark.parametrize("m,n_extra", [(8, 3), (32, 3), (32, 0), (4, 0),
+                                       (4, 3)])
 def test_fused_backward_kernel_matches_plain(cuda_device, m, n_extra):
+    """At m = 4 most entries fall past each pixel's list, so A' reduces the
+    uv columns only for warps where some lanes hold the pair in their list
+    (F = 7 and F = 10)."""
     args = _to(cuda_device, kernel_a_inputs(m=m, n_extra=n_extra))
     outs = fused_pairs(*args)
     cots = kernel_a_cotangents(outs)
@@ -379,6 +395,118 @@ def test_hash_gather_kernel_matches_plain(cuda_device, levels, size, n):
     torch.testing.assert_close(got, gather_plain(table, idx), rtol=0, atol=0)
 
 
+def encode_inputs(levels=8, feats=4, log2=12, n=8192, seed=4):
+    """(table, points, cotangent) on the CPU: n random points from `seed`,
+    then for each level 64 points whose coordinates lie exactly on its grid
+    lines (k / res_l), where an FMA in x * res_l - floor would flip the
+    floor, and the unit cube's corners."""
+    rng = np.random.default_rng(seed)
+    table = rng.uniform(-1, 1, size=(levels, 2 ** log2, feats))
+    pts = [rng.uniform(size=(n, 3))]
+    for level in range(levels):
+        res = level_resolution(level)
+        pts.append(rng.integers(0, res + 1, size=(64, 3)) / res)
+    pts.append([[(c >> a) & 1 for a in range(3)] for c in range(8)])
+    x = np.concatenate(pts).astype(np.float32)
+    cot = rng.normal(size=(x.shape[0], levels * feats))
+    return tuple(torch.as_tensor(a, dtype=torch.float32)
+                 for a in (table, x, cot))
+
+
+def test_hash_encode_runs_plain_versions_on_cpu():
+    table, x, cot = encode_inputs(levels=2, feats=2, log2=8, n=100)
+    before = (hash_encode.launches, hash_encode_backward.launches)
+    got, idx, w = hash_encode_forward(table, x, corners=True)
+    d_table, d_x = hash_encode_backward(table, x, cot)
+    assert (hash_encode.launches, hash_encode_backward.launches) == before
+    torch.testing.assert_close(got, encode_plain(table, x), rtol=0, atol=0)
+    idx_w, w_w = indices_and_weights(x, 2, 256)
+    assert torch.equal(idx, idx_w) and torch.equal(w, w_w)
+    d_table_w, d_x_w = encode_backward_plain(table, x, cot)
+    torch.testing.assert_close(d_table, d_table_w, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(d_x, d_x_w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_hash_encode_rejects_too_many_features(cuda_device):
+    table, x, _ = encode_inputs(levels=2, feats=9, log2=4, n=10)
+    with pytest.raises(ValueError, match="features"):
+        hash_encode_forward(table.to(cuda_device), x.to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels,feats,log2,n", [(8, 4, 12, 8192),
+                                                 (4, 2, 10, 1500),
+                                                 (3, 5, 6, 700)])
+def test_hash_encode_kernel_matches_plain(cuda_device, levels, feats, log2, n):
+    """The forward on grid-line points: every corner index and weight as
+    the plain version's, bit for bit; the features within atol 1e-6 /
+    rtol 1e-5."""
+    table, x, _ = (t.to(cuda_device) for t in
+                   encode_inputs(levels, feats, log2, n))
+    before = hash_encode.launches
+    got, idx, w = hash_encode_forward(table, x, corners=True)
+    torch.cuda.synchronize()
+    assert hash_encode.launches == before + 1
+    idx_w, w_w = indices_and_weights(x, levels, 2 ** log2)
+    assert torch.equal(idx, idx_w), int((idx != idx_w).sum())
+    assert torch.equal(w, w_w)
+    torch.testing.assert_close(got, encode_plain(table, x), rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(hash_encode_forward(table, x), got, rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels,feats,log2,n", [(8, 4, 12, 8192),
+                                                 (4, 2, 10, 1500),
+                                                 (3, 5, 6, 700)])
+def test_hash_encode_backward_kernel_matches_plain(cuda_device, levels, feats,
+                                                   log2, n):
+    table, x, cot = (t.to(cuda_device) for t in
+                     encode_inputs(levels, feats, log2, n))
+    before = hash_encode_backward.launches
+    d_table, d_x = hash_encode_backward(table, x, cot)
+    torch.cuda.synchronize()
+    assert hash_encode_backward.launches == before + 1
+    d_table_w, d_x_w = encode_backward_plain(table, x, cot)
+    assert bool(d_table_w.any()) and bool(d_x_w.abs().max() > 1e-3)
+    torch.testing.assert_close(d_table, d_table_w, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(d_x, d_x_w, rtol=1e-4, atol=1e-4)
+    d_table_only, none = hash_encode_backward(table, x, cot, need_x=False)
+    assert none is None
+    torch.testing.assert_close(d_table_only, d_table_w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_hash_encode_through_autograd(cuda_device):
+    """hash_encode launches K5' once forward and K5'' once backward, and
+    agrees with autograd through the plain forward."""
+    table, x, cot = (t.to(cuda_device) for t in encode_inputs(n=3000))
+    t = table.clone().requires_grad_(True)
+    xt = x.clone().requires_grad_(True)
+    before = (hash_encode.launches, hash_encode_backward.launches)
+    d_t, d_x = torch.autograd.grad(hash_encode(t, xt), (t, xt), cot)
+    assert (hash_encode.launches, hash_encode_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    t_w = table.clone().requires_grad_(True)
+    x_w = x.clone().requires_grad_(True)
+    d_t_w, d_x_w = torch.autograd.grad(encode_plain(t_w, x_w), (t_w, x_w), cot)
+    torch.testing.assert_close(d_t, d_t_w, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(d_x, d_x_w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_hash_encode_kernels_empty_query(cuda_device):
+    table, x, cot = (t.to(cuda_device) for t in encode_inputs(n=0))
+    x, cot = x[:0].contiguous(), cot[:0].contiguous()
+    before = (hash_encode.launches, hash_encode_backward.launches)
+    assert hash_encode_forward(table, x).shape == (0, 32)
+    d_table, d_x = hash_encode_backward(table, x, cot)
+    assert (hash_encode.launches, hash_encode_backward.launches) == before
+    assert not bool(d_table.any()) and d_x.shape == (0, 3)
+
+
 def _train_model(device, sd=None):
     """A small stage-3 model with every loss term's inputs: 3,000
     Gaussians, SH 3, an inverse net with a 2-level hash grid, a 32^2
@@ -426,7 +554,8 @@ def _train_model(device, sd=None):
 @pytest.mark.cuda
 def test_train_step_on_card_matches_cpu(cuda_device):
     """One stage-3 training step with every prod loss term: the card's
-    kernels (A, A', B, B', the hash gather, once each) against the CPU's
+    kernels (A, A', B, B', the hash encode and its backward, once each)
+    against the CPU's
     plain versions, from the same state.  The loss at rtol 1e-4; every
     leaf's gradient, read from the Adam moments of the first step (mu =
     0.1 g), at atol 2e-3 of its max |grad|, as the CPU tests hold the port
@@ -437,7 +566,7 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     from texgs_torch.core.camera import with_ground_truth
     from texgs_torch.kernels import tex_term as kt
     from texgs_torch.kernels import uvtex_fused as kf
-    from texgs_torch.nets import hash_gather as kh
+    from texgs_torch.nets import hash_encode as ke
     from texgs_torch.train.optim import flatten_tree
 
     cpu = _train_model("cpu")
@@ -452,11 +581,11 @@ def test_train_step_on_card_matches_cpu(cuda_device):
                     "lambda_norm": 0.1, "lambda_norm_smooth": 0.5,
                     "lambda_no_sh": 2.0, "lambda_inverse": 0.1})
     counters = (kf.fused_pairs, kf.fused_pairs_backward, kt.tex_term,
-                kt.tex_term_backward, kh.hash_gather)
+                kt.tex_term_backward, ke.hash_encode, ke.hash_encode_backward)
     before = [fn.launches for fn in counters]
     loss_card = card.compute_loss(1, 10, cam, None, loss_cfg)[0].item()
     torch.cuda.synchronize()
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [1] * 5
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1] * 6
     loss_cpu = cpu.compute_loss(1, 10, cam, None, loss_cfg)[0].item()
     np.testing.assert_allclose(loss_card, loss_cpu, rtol=1e-4)
     want = flatten_tree(cpu.state_dict()["optim_state"])

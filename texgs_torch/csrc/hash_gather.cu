@@ -7,8 +7,10 @@
 // out[r, f, n] = table[r / corners, idx[r, n], f] for every corner row r of
 // the (L * corners, N) index array: the feature rows of the trilinear
 // corners of each query, level by level.  Hashing and the trilinear weights
-// stay in PyTorch, as in texgs; the backward is a plain index_put_, as
-// texgs's is an XLA scatter-add.
+// stay outside it, as in texgs; the backward is a plain index_put_, as
+// texgs's is an XLA scatter-add.  The port's hash grid runs the fused
+// encode of hash_encode.cu instead; this gather is kept as the counterpart
+// of texgs's Pallas kernel.
 //
 // Design.  One thread per (corner row, query), reading the F features of
 // one table row and writing them to F planes; neighbouring threads take

@@ -23,18 +23,33 @@
 // alpha, T and stop arithmetic (uvtex_common.cuh), so a pixel stops at the
 // same pair as in the forward.  All threads walk the pairs in step; a
 // pixel that has stopped contributes zeros.  Each pair's gradient is a sum
-// over the tile's 256 pixels: warp shuffles reduce it to 8 partials, which
-// go to shared memory; every GROUP pairs the block adds the partials and
-// issues one atomicAdd per pair and nonzero column into the per-Gaussian
-// outputs.  The kernel reads the table by Gaussian index and shifts the
-// quadratic into the tile's frame itself, so it applies the transpose of
-// that shift before the atomics; the log-opacity column (used only by the
-// power > 0 skip) and the anchor columns (a floor) get no gradient.
+// over the tile's 256 pixels of a 32-column vector: the 6 tile-frame quad
+// coefficients and the NF blend channels fill its first half, the 12 uv-row
+// entries its second (the rest pads).  A warp reduce-scatters that vector:
+// each round halves the columns a lane holds and swaps the other half with
+// the partner lane, 16 + 8 + 4 + 2 + 1 = 31 shuffles in all, after which
+// lane c holds column c's warp sum and stores it to shared memory itself
+// (a butterfly per column took 5 shuffles a column, 140 at F = 10, and 28
+// serial stores).  The uv half is reduced only when a ballot finds a pixel
+// of the warp with the pair in its M-list (past each pixel's m-th
+// contributor those columns are zero): then the first half alone takes
+// 15 + 1 shuffles.  GROUP pairs' warp sums wait in shared memory between
+// two barriers; then warp 0 sums each pair's quad columns over the warps
+// and takes them back to the anchor frame (the kernel reads the table by
+// Gaussian index and shifts the quadratic into the tile's frame itself) once
+// a pair, and the other warps sum the channel and uv columns, each issuing
+// one atomicAdd per pair and nonzero column into the per-Gaussian outputs.
+// The block asks for at most 64 registers, so 4 blocks share an SM (3 at
+// the 80 registers it takes unbounded; the few bytes it then spills cost
+// less than the occupancy gains: scripts/ab_fused_bwd.py).
+// The log-opacity column (used only by the power > 0 skip) and the anchor
+// columns (a floor) get no gradient.
 //
-// Bound on Hopper: bytes.  Per pixel it reads the M-list and its cotangent
-// (2 m 16 bytes), the blend channels and theirs; per pair the table and uv
-// rows.  The block reduction costs about 5 shuffles per value per warp
-// and pair; it is what a later PR would make cheaper.
+// Bound on Hopper: operations at the stage-3 view (per evaluated entry the
+// replay, the suffix form, the exponent's gradient and its share of the
+// block sums; per in-list entry the intersection and its gradient), then
+// bytes: per pixel the M-list weights and the in-list slots' cotangents,
+// the blend channels and theirs; per pair the table and uv rows.
 
 #include <cuda_runtime.h>
 
@@ -46,22 +61,40 @@ namespace {
 
 using namespace texgs;
 
-constexpr int BATCH = 128;  // pair records staged per pass
-constexpr int GROUP = 8;    // pairs whose partial sums wait in shared memory
+constexpr int BATCH = 64;   // pair records staged per pass
+constexpr int GROUP = 32;   // pairs whose warp sums wait in shared memory
 constexpr int WARPS = PIX / 32;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int HALF = 16;     // columns in each half of a pair's vector
 constexpr int UV_GRAD = 12;  // sv(3), siginv(6), base_uv(3)
+constexpr int FEAT = 6;      // first blend channel's column; quad before it
+
+// One round of the reduce-scatter: lanes whose bit W is set keep columns
+// W..2W-1 of the 2W they hold, the others 0..W-1; each sends its partner
+// (lane ^ W) the half the partner keeps.
+template <int W>
+__device__ __forceinline__ void scatter_round(float r[HALF], int lane) {
+  const bool up = lane & W;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float send = up ? r[i] : r[i + W];
+    const float keep = up ? r[i + W] : r[i];
+    r[i] = keep + __shfl_xor_sync(FULL, send, W);
+  }
+}
+
+// Reduce-scatter of 16 columns over each 16-lane half of the warp: lane l
+// returns the sum over its half of column l & 15 (15 shuffles).
+__device__ __forceinline__ float scatter16(float r[HALF], int lane) {
+  scatter_round<8>(r, lane);
+  scatter_round<4>(r, lane);
+  scatter_round<2>(r, lane);
+  scatter_round<1>(r, lane);
+  return r[0];
+}
 
 template <int NF>
-struct Cols {
-  static constexpr int QUAD = 0;         // 6 tile-frame coefficients
-  static constexpr int FEAT = 6;         // NF blend channels
-  static constexpr int UV = 6 + NF;      // 12 uv-row entries
-  static constexpr int N = 6 + NF + UV_GRAD;
-};
-
-template <int NF>
-__global__ void __launch_bounds__(PIX)
+__global__ void __launch_bounds__(PIX, 4)
     fused_backward(const float* __restrict__ table, int tab_cols,
                    const float* __restrict__ uv_rows,
                    const int* __restrict__ pair_gauss,
@@ -74,13 +107,16 @@ __global__ void __launch_bounds__(PIX)
                    const float* __restrict__ g_t_final,
                    const float4* __restrict__ g_mlist,
                    float* __restrict__ d_table, float* __restrict__ d_uv) {
-  using C = Cols<NF>;
+  static_assert(FEAT + NF <= HALF, "quad and channels fill one half");
+  static_assert(GROUP == 32, "warp 0 takes one pair of the group a lane");
   __shared__ float s_quad[BATCH][8];
   __shared__ float s_feat[BATCH][NF];
   __shared__ float s_uv[BATCH][UV_USED];
   __shared__ int s_gauss[BATCH];
   __shared__ float s_shift[BATCH][2];
-  __shared__ float s_red[GROUP][WARPS][C::N];
+  // one pair's warp sums, warp-major; the pad puts lane l of warp 0's
+  // epilogue (pair l) on bank l
+  __shared__ float s_red[GROUP][WARPS * 2 * HALF + 1];
 
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
@@ -134,10 +170,11 @@ __global__ void __launch_bounds__(PIX)
     for (int k0 = 0; k0 < n_batch; k0 += GROUP) {
       for (int kk = 0; kk < GROUP; ++kk) {
         const int k = k0 + kk;
-        float v[C::N];
+        // a: quad (0-5) and channels (6..); b: the uv-row gradient
+        float a[HALF], b[HALF];
 #pragma unroll
-        for (int c = 0; c < C::N; ++c) v[c] = 0.f;
-        bool any = false;
+        for (int c = 0; c < HALF; ++c) a[c] = b[c] = 0.f;
+        bool any = false, in_list = false;
         if (k < n_batch && !done) {
           const float* q = s_quad[k];
           float e;
@@ -150,7 +187,6 @@ __global__ void __launch_bounds__(PIX)
             float g_w = 0.f;
 #pragma unroll
             for (int f = 0; f < NF; ++f) g_w += s_feat[k][f] * g_out[f];
-            bool in_list = false;
             float4 g_slot = make_float4(0.f, 0.f, 0.f, 0.f);
             if (w > 0.f) {
               if (count < m) {
@@ -167,77 +203,85 @@ __global__ void __launch_bounds__(PIX)
             // nor clamped at 0.99
             const float g_power =
                 (alpha > 0.f && e <= ALPHA_CLAMP) ? g_alpha * alpha : 0.f;
-            v[C::QUAD + 0] = x * x * g_power;
-            v[C::QUAD + 1] = y * y * g_power;
-            v[C::QUAD + 2] = x * y * g_power;
-            v[C::QUAD + 3] = x * g_power;
-            v[C::QUAD + 4] = y * g_power;
-            v[C::QUAD + 5] = g_power;
+            a[0] = x * x * g_power;
+            a[1] = y * y * g_power;
+            a[2] = x * y * g_power;
+            a[3] = x * g_power;
+            a[4] = y * g_power;
+            a[5] = g_power;
 #pragma unroll
-            for (int f = 0; f < NF; ++f) v[C::FEAT + f] = w * g_out[f];
+            for (int f = 0; f < NF; ++f) a[FEAT + f] = w * g_out[f];
             if (in_list) {
               const float g[3] = {g_slot.y, g_slot.z, g_slot.w};
-              intersect_grad(d, intersect(d, s_uv[k]), g, v + C::UV);
+              intersect_grad(d, intersect(d, s_uv[k]), g, b);
             }
             any = alpha > 0.f;  // alpha = 0 leaves every value 0
             T = t_next;
           }
         }
-        // warp sums; a warp none of whose pixels took part writes zeros
+        // the warp's sums, lane c holding column c; a warp none of whose
+        // pixels took part writes zeros
+        float col = 0.f;
         if (__any_sync(FULL, any)) {
+          const bool hi = lane & HALF;
+          if (__any_sync(FULL, in_list)) {
+            float r[HALF];
 #pragma unroll
-          for (int c = 0; c < C::N; ++c) {
-            float a = v[c];
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(FULL, a, o);
-            v[c] = a;
+            for (int i = 0; i < HALF; ++i) {
+              const float send = hi ? a[i] : b[i];
+              const float keep = hi ? b[i] : a[i];
+              r[i] = keep + __shfl_xor_sync(FULL, send, HALF);
+            }
+            col = scatter16(r, lane);
+          } else {
+            col = scatter16(a, lane);
+            col += __shfl_xor_sync(FULL, col, HALF);
+            if (hi) col = 0.f;  // the uv half is all zeros
           }
         }
-        if (lane == 0) {
-#pragma unroll
-          for (int c = 0; c < C::N; ++c) s_red[kk][warp][c] = v[c];
-        }
+        s_red[kk][warp * 2 * HALF + lane] = col;
       }
       __syncthreads();
 
-      // one thread per (pair of the group, output column)
-      if (tid < GROUP * C::N) {
-        const int kk = tid / C::N, c = tid % C::N;
-        const int k = k0 + kk;
+      if (warp == 0) {
+        // one lane per pair: its quad columns summed over the warps and
+        // taken back to the anchor frame (the transpose of shift_to_tile)
+        const int k = k0 + lane;
         if (k < n_batch) {
-          const int g = s_gauss[k];
-          float val;
-          int col;
-          float* out;
-          if (c < 6) {
-            float dq[6];
+          float dq[6];
 #pragma unroll
-            for (int i = 0; i < 6; ++i) {
-              float a = 0.f;
+          for (int i = 0; i < 6; ++i) {
+            float sum = 0.f;
 #pragma unroll
-              for (int wi = 0; wi < WARPS; ++wi) a += s_red[kk][wi][C::QUAD + i];
-              dq[i] = a;
-            }
-            // transpose of shift_to_tile: tile-frame -> anchor-frame
-            float anchor[6];
-            unshift_grad(dq, s_shift[k][0], s_shift[k][1], anchor);
-            val = anchor[c];
-            col = c;
-            out = d_table + static_cast<size_t>(g) * tab_cols;
-          } else {
-            float a = 0.f;
-#pragma unroll
-            for (int wi = 0; wi < WARPS; ++wi) a += s_red[kk][wi][c];
-            val = a;
-            if (c < C::UV) {
-              col = feature_col(c - C::FEAT);
-              out = d_table + static_cast<size_t>(g) * tab_cols;
-            } else {
-              col = c - C::UV;
-              out = d_uv + static_cast<size_t>(g) * UV_COLS;
-            }
+            for (int wi = 0; wi < WARPS; ++wi)
+              sum += s_red[lane][wi * 2 * HALF + i];
+            dq[i] = sum;
           }
-          if (val != 0.f) atomicAdd(out + col, val);
+          float anchor[6];
+          unshift_grad(dq, s_shift[k][0], s_shift[k][1], anchor);
+          float* out = d_table + static_cast<size_t>(s_gauss[k]) * tab_cols;
+#pragma unroll
+          for (int i = 0; i < 6; ++i)
+            if (anchor[i] != 0.f) atomicAdd(out + i, anchor[i]);
+        }
+      } else {
+        // the other warps: one (pair, channel or uv column) at a time
+        constexpr int COLS = NF + UV_GRAD;
+        for (int i = tid - 32; i < GROUP * COLS; i += PIX - 32) {
+          const int kk = i / COLS, j = i % COLS;
+          const int k = k0 + kk;
+          if (k >= n_batch) continue;
+          const int c = j < NF ? FEAT + j : HALF + (j - NF);
+          float sum = 0.f;
+#pragma unroll
+          for (int wi = 0; wi < WARPS; ++wi)
+            sum += s_red[kk][wi * 2 * HALF + c];
+          if (sum == 0.f) continue;
+          const size_t g = static_cast<size_t>(s_gauss[k]);
+          if (j < NF)
+            atomicAdd(d_table + g * tab_cols + feature_col(j), sum);
+          else
+            atomicAdd(d_uv + g * UV_COLS + (j - NF), sum);
         }
       }
       __syncthreads();

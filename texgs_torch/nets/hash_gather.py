@@ -6,6 +6,11 @@ Replaces the TPU kernel ``hash_gather`` of texgs/nets/pallas_hashgrid.py:63
 The TPU kernel's ``BLOCK_Q`` padding and 128-lane table segments are TPU
 layout and are not ported.
 
+The port's ``HashGrid`` no longer calls it: the fused hash encode of
+nets/hash_encode.py (kernels K5' and K5'') computes the whole encoding.
+This gather stays as the counterpart of texgs's Pallas ``hash_gather``,
+held against its plain version on a training step's own corner indices.
+
 ``hash_gather`` is differentiable in the table.  Its backward is plain
 PyTorch, ``index_put_(..., accumulate=True)``, as texgs's is an XLA
 scatter-add (pallas_hashgrid.py:103-114): texgs has no backward kernel
