@@ -58,30 +58,36 @@ def variant_source(text: str, subs) -> str:
     return text
 
 
-def build_variants(out_dir: Path) -> dict:
-    """Compiles every variant (one nvcc each, all started together);
-    returns {name: loaded library}."""
+def build_variants(source: str, variants: dict, out_dir: Path,
+                   csrc: dict | None = None) -> dict:
+    """Compiles csrc/<source>.cu once per variant in `variants` (name ->
+    substitutions), from the csrc directory csrc[name] where one is given
+    (another tree's sources), else from this tree's; one nvcc each, all
+    started together.  Prints each ptxas report's registers, shared memory
+    and spills; returns {name: loaded library}."""
     from texgs_torch import _build
 
-    src = (_build.CSRC / "uvtex_fused_bwd.cu").read_text()
+    csrc = csrc or {}
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, subs in VARIANTS.items():
-        cu = out_dir / f"uvtex_fused_bwd_{name}.cu"
-        cu.write_text(variant_source(src, subs))
-        so = out_dir / f"lib{name}.so"
+    for name, subs in variants.items():
+        src_dir = Path(csrc.get(name, _build.CSRC))
+        cu = out_dir / f"{source}_{name}.cu"
+        cu.write_text(variant_source((src_dir / f"{source}.cu").read_text(),
+                                     subs))
+        so = out_dir / f"lib{source}_{name}.so"
         procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src_dir), "-o",
              str(so), str(cu)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
         log_text, _ = proc.communicate()
         if proc.returncode:
-            raise SystemExit(f"nvcc failed for variant {name}:\n{log_text}")
+            raise SystemExit(f"nvcc failed for {source} {name}:\n{log_text}")
         for line in log_text.splitlines():
             if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+                print(f"  {source} {name}: {line.strip()}", flush=True)
         libs[name] = ctypes.CDLL(str(so))
     return libs
 
@@ -103,7 +109,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"[device] {card}", flush=True)
-    libs = build_variants(ROOT / "build" / "texgs_torch" / "ab_fused_bwd")
+    libs = build_variants("uvtex_fused_bwd", VARIANTS,
+                          ROOT / "build" / "texgs_torch" / "ab_fused_bwd")
 
     model, _ = cs.build_model(torch, device)
     cams = orbit_cameras(cs.N_VIEWS, radius=3.5, width=cs.WIDTH,

@@ -128,10 +128,14 @@ def random_texture(res, seed=1):
                            dtype=torch.float32)
 
 
+def _pairs_to(dev, pairs):
+    return binning.PairList(*(None if t is None else t.to(dev) for t in pairs))
+
+
 def _to(dev, args):
     table, uv_rows, pairs, rays, gx, m = args
     return (table.to(dev), uv_rows.to(dev),
-            binning.PairList(*(t.to(dev) for t in pairs)), rays, gx, m)
+            _pairs_to(dev, pairs), rays, gx, m)
 
 
 def test_fused_wrapper_runs_plain_version_on_cpu():
@@ -647,7 +651,45 @@ def opaque_stack_inputs(n_opaque=4, n_dead=2):
 
 def _to1(dev, args):
     table, pairs, gx = args
-    return table.to(dev), binning.PairList(*(t.to(dev) for t in pairs)), gx
+    return table.to(dev), _pairs_to(dev, pairs), gx
+
+
+# pair counts on and beside the backward kernels' GROUP (32 pairs between
+# barriers) and BATCH (64 or 128 staged pairs) boundaries, and one tile
+# near the flagship view's heaviest (881 pairs); in ascending order and
+# shuffled, so that the heaviest-first order permutes the tiles both ways
+EDGE_COUNTS = {"ascending": (0, 1, 31, 32, 33, 63, 64, 65, 129, 897),
+               "shuffled": (64, 897, 0, 33, 129, 1, 65, 31, 63, 32)}
+
+
+def edge_count_inputs(counts, n_extra=3, m=32):
+    """Kernel A's arguments (table, uv_rows, pairs, rays, gx = 5, m) on a
+    grid of len(counts) tiles, tile t holding counts[t] pairs: the depth-
+    ordered pairs of kernel_a_inputs' heaviest tile, cycled, each a table
+    row of its own whose anchor moves with the tile, so that every tile
+    sees the same Gaussians in its own frame."""
+    table, uv_rows, pairs, rays, gx, _ = kernel_a_inputs(n_extra=n_extra)
+    src = int(torch.argmax(pairs.tile_counts))
+    s0, n_src = int(pairs.tile_start[src]), int(pairs.tile_counts[src])
+    corner = lambda t: torch.tensor([t % gx, t // gx], dtype=torch.float32) * 16
+    rows, uvs = [], []
+    for t, n in enumerate(counts):
+        g = pairs.pair_gauss[s0 + torch.arange(n) % n_src].long()
+        r = table[g].clone()
+        r[:, 14:16] += corner(t) - corner(src)
+        rows.append(r)
+        uvs.append(uv_rows[g])
+    counts = torch.tensor(counts, dtype=torch.int32)
+    end = torch.cumsum(counts, 0).to(torch.int32)
+    n = int(end[-1])
+    edge = binning.PairList(
+        pair_gauss=torch.arange(n, dtype=torch.int32),
+        pair_tile=torch.repeat_interleave(
+            torch.arange(len(counts), dtype=torch.int32), counts),
+        tile_start=end - counts, tile_end=end, tile_counts=counts,
+        n_pairs=torch.tensor(n), overflowed=torch.tensor(False))
+    return (torch.cat(rows).contiguous(), torch.cat(uvs).contiguous(),
+            binning.with_tile_order(edge), rays, gx, m)
 
 
 def _raster_pixels_off(got, want):
@@ -674,6 +716,49 @@ def test_raster_wrappers_run_plain_version_on_cpu():
                                rtol=1e-4, atol=1e-5)
 
 
+def test_heaviest_first_tile_order():
+    """The order in which kernels 1' and 2' take the tiles: descending pair
+    counts, ties by tile index, computed once per pair list."""
+    counts = torch.tensor([3, 0, 7, 3, 9, 7, 0, 1], dtype=torch.int32)
+    order = binning.heaviest_first(counts)
+    assert order.dtype == torch.int64
+    assert order.tolist() == [4, 2, 5, 0, 3, 7, 1, 6]
+    table, _, pairs, _, gx, _ = edge_count_inputs(EDGE_COUNTS["shuffled"])
+    assert pairs.tile_order.tolist() == np.argsort(
+        -np.array(EDGE_COUNTS["shuffled"]), kind="stable").tolist()
+    assert binning.with_tile_order(pairs).tile_order is pairs.tile_order
+    assert binning.tile_order_arg("test", pairs, table.device) is \
+        pairs.tile_order
+
+
+@pytest.mark.parametrize("grad", [True, False], ids=["train", "render"])
+def test_tile_order_set_where_a_render_is_differentiated(monkeypatch, grad):
+    """rasterize_tiled hands kernel 1 a pair list with its tile order where
+    the blend will be differentiated, and sorts nothing for a render."""
+    from texgs_torch.kernels import raster as kr
+
+    pcd = textured_sphere_point_cloud(300, seed=0)
+    st = init_from_pcd(pcd.points, pcd.colors, 0, device="cpu")
+    cam = orbit_cameras(1, radius=3.5, width=48, height=32)[0]
+    xyz = st.xyz.clone().requires_grad_(grad)
+    proj = project.project_gaussians(
+        xyz, torch.exp(st.scaling), st.rotation, torch.full((300, 1), 0.6),
+        torch.zeros_like(st.xyz), torch.as_tensor(cam.world_view),
+        torch.as_tensor(cam.full_proj), torch.as_tensor(cam.camera_center),
+        48, 32, cam.tanfovx, cam.tanfovy)
+    seen = []
+    raster = kr.raster_pairs
+    monkeypatch.setattr(kr, "raster_pairs",
+                        lambda t, p, gx: seen.append(p) or raster(t, p, gx))
+    tile_raster.rasterize_tiled(proj, 32, 48, torch.zeros(3))
+    (pairs,) = seen
+    if grad:
+        assert torch.equal(pairs.tile_order,
+                           binning.heaviest_first(pairs.tile_counts))
+    else:
+        assert pairs.tile_order is None
+
+
 @pytest.mark.cuda
 def test_raster_rejects_channels_off_the_path(cuda_device):
     """Kernel 1 is built for F = 7 (stages 1 and 2) and F = 10 (the
@@ -696,9 +781,10 @@ def test_raster_rejects_channels_off_the_path(cuda_device):
         p(pairs.tile_end), n_tiles, gx, 8, p(out), p(t_fin), p(n_eval),
         _build.stream_of(wide))
     assert err == 1  # cudaErrorInvalidValue
+    order = binning.heaviest_first(pairs.tile_counts)
     err = _build.function("raster_bwd", "raster_backward", kr._BWD_ARGS)(
         p(wide), wide.shape[1], p(pairs.pair_gauss), p(pairs.tile_start),
-        p(pairs.tile_end), n_tiles, gx, 8, p(out), p(t_fin), p(out),
+        p(pairs.tile_end), p(order), n_tiles, gx, 8, p(out), p(t_fin), p(out),
         p(t_fin), p(wide), _build.stream_of(wide))
     assert err == 1
 
@@ -757,6 +843,24 @@ def test_raster_backward_kernel_matches_plain(cuda_device, n_extra):
     torch.cuda.synchronize()
     assert raster_pairs_backward.launches == before + 1
     assert_raster_backward_close(got, raster_scan_vjp(*args, *cots))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", list(EDGE_COUNTS))
+@pytest.mark.parametrize("n_extra", [0, 3], ids=["F7", "F10"])
+def test_raster_backward_kernel_at_batch_edges(cuda_device, n_extra, order):
+    """Kernel 1' on tiles of EDGE_COUNTS pairs, every pixel of the tiles up
+    to 129 pairs evaluating all of them."""
+    counts = EDGE_COUNTS[order]
+    table, _, pairs, _, gx, _ = _to(cuda_device, edge_count_inputs(
+        counts, n_extra=n_extra))
+    outs = raster_pairs(table, pairs, gx)
+    assert outs[2].amax(-1).tolist() == list(counts)
+    rng = np.random.default_rng(6)
+    cots = [torch.as_tensor(rng.normal(size=tuple(t.shape)), dtype=torch.float32,
+                            device=cuda_device) for t in outs[:2]]
+    got = raster_pairs_backward(table, pairs, gx, *outs[:2], *cots)
+    assert_raster_backward_close(got, raster_scan_vjp(table, pairs, gx, *cots))
 
 
 @pytest.mark.cuda
@@ -972,6 +1076,18 @@ def test_mlist_backward_kernel_matches_plain(cuda_device, m, n_extra):
     got = mlist_pairs_backward(*args, ml, g)
     torch.cuda.synchronize()
     assert mlist_pairs_backward.launches == before + 1
+    assert_mlist_backward_close(got, mlist_only_scan_vjp(*args, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", list(EDGE_COUNTS))
+@pytest.mark.parametrize("m", [8, 32])
+def test_mlist_backward_kernel_at_batch_edges(cuda_device, m, order):
+    """Kernel 2' on tiles of EDGE_COUNTS pairs."""
+    args = _to(cuda_device, edge_count_inputs(EDGE_COUNTS[order], m=m))
+    ml = mlist_pairs(*args)
+    g = kernel_a_cotangents((ml, ml, ml), seed=4)[0]
+    got = mlist_pairs_backward(*args, ml, g)
     assert_mlist_backward_close(got, mlist_only_scan_vjp(*args, g))
 
 

@@ -16,40 +16,53 @@
 // neither zeroed nor clamped at 0.99.
 //
 // Design.  Kernel A' (uvtex_fused_bwd.cu) without the M-list and uv rows:
-// one thread block per 16x16 tile, one thread per pixel.  The block
-// replays the tile's pairs in depth order with kernel 1's own alpha, T and
-// stop arithmetic (uvtex_common.cuh), so a pixel stops at the same pair as
-// in the forward.  All threads walk the pairs in step; a pixel that has
-// stopped, and a pair past the tile's end, contribute zeros, written by
+// one thread block per 16x16 tile, one thread per pixel, the blocks taking
+// the tiles heaviest first (a tile's pairs run one after another in its
+// block, so a heavy tile launched late would set the kernel's tail).  The
+// block replays the tile's pairs in depth order with kernel 1's own alpha,
+// T and stop arithmetic (uvtex_common.cuh), so a pixel stops at the same
+// pair as in the forward.  All threads walk the pairs in step; a pixel that
+// has stopped, and a pair past the tile's end, contribute zeros, written by
 // select (texgs multiplies a dead entry's garbage by 0, which lets NaN
-// through).  Each pair's 6 + F values (6 quadratic coefficients, F channels)
-// are summed over the tile's 256 pixels: warp shuffles reduce them to 8
-// partials, which go to shared memory; every GROUP pairs the block adds the
-// partials and issues one atomicAdd per pair and nonzero column into the
-// per-Gaussian gradient.  The kernel reads the table by Gaussian index and
-// shifts the quadratic into the tile's frame itself, so it applies the
-// transpose of that shift (unshift_grad) before the atomics.  The
+// through).  Each pair's 6 + F values (6 quadratic coefficients, F
+// channels) fill one 16-column half of A''s vector, and a warp reduces them
+// as A' does when no pixel is in an M-list (warp_reduce.cuh): a
+// reduce-scatter over each 16-lane half, one shuffle across the halves, and
+// lane c stores column c's warp sum (16 shuffles and one store a lane,
+// where a butterfly per column took 5 shuffles a column and 6 + F serial
+// stores).  GROUP pairs' warp sums wait in shared memory between two
+// barriers; then warp 0 sums each pair's quad columns over the warps and
+// takes them back to the anchor frame (the kernel reads the table by
+// Gaussian index and shifts the quadratic into the tile's frame itself:
+// unshift_grad is the transpose of that shift) once a pair, and the other
+// warps sum the channel columns, each issuing one atomicAdd per pair and
+// nonzero column into the per-Gaussian gradient.  The block leaves once
+// every pixel has stopped.  It takes 58-60 registers, so 4 blocks share an
+// SM without a register bound; A''s bound of 64 measured 3-6% slower at
+// F = 7 and within 2% at F = 10 (scripts/ab_raster_bwd.py).  The
 // log-opacity column (used only by the power > 0 skip) and the anchor
 // columns (a floor of the projected mean) get no gradient.
 //
 // Bound on Hopper: operations at the stage-1 shape.  It reads the table
 // rows of each tile's pairs, the blend and T_final with their cotangents,
 // and writes the gradient; per evaluated (pixel, pair) it does the replay,
-// the suffix form and 6 + F warp sums (about 40 + 3F f32 operations).  The
-// block reduction is what a later PR would make cheaper.
+// the suffix form and its share of the block sums (about 40 + 3F f32
+// operations).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "uvtex_common.cuh"
+#include "warp_reduce.cuh"
 
 namespace {
 
 using namespace texgs;
 
 constexpr int BATCH = 128;  // pair records staged per pass
-constexpr int GROUP = 8;    // pairs whose partial sums wait in shared memory
+constexpr int GROUP = 32;   // pairs whose warp sums wait in shared memory
 constexpr int WARPS = PIX / 32;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int FEAT = 6;     // first channel value, after the 6 coefficients
 
 template <int NF>
@@ -57,21 +70,27 @@ __global__ void __launch_bounds__(PIX)
     raster_bwd(const float* __restrict__ table,
                const int* __restrict__ pair_gauss,
                const int* __restrict__ tile_start,
-               const int* __restrict__ tile_end, int gx,
+               const int* __restrict__ tile_end,
+               const int64_t* __restrict__ tile_order, int gx,
                const float* __restrict__ blend,
                const float* __restrict__ t_final,
                const float* __restrict__ g_blend,
                const float* __restrict__ g_t_final,
                float* __restrict__ d_table) {
   constexpr int TAB_COLS = TABLE_FIXED + NF - N_FIXED_F;
-  constexpr int N_COLS = 6 + NF;
+  constexpr int N_COLS = FEAT + NF;
+  // a pair's warp sums, warp-major; WARPS * N_COLS is even, so the pad
+  // puts lane l of warp 0's epilogue (pair l) on a bank of its own
+  constexpr int RED_ROW = WARPS * N_COLS + 1;
+  static_assert(N_COLS <= HALF, "quad and channels fill one half");
+  static_assert(GROUP == 32, "warp 0 takes one pair of the group a lane");
   __shared__ float s_quad[BATCH][8];
   __shared__ float s_feat[BATCH][NF];
   __shared__ int s_gauss[BATCH];
   __shared__ float s_shift[BATCH][2];
-  __shared__ float s_red[GROUP][WARPS][N_COLS];
+  __shared__ float s_red[GROUP][RED_ROW];
 
-  const int tile = blockIdx.x;
+  const int tile = static_cast<int>(tile_order[blockIdx.x]);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const float tile_x = static_cast<float>((tile % gx) * TILE);
@@ -109,13 +128,15 @@ __global__ void __launch_bounds__(PIX)
 
     const int n_batch = min(BATCH, end - base);
     for (int k0 = 0; k0 < n_batch; k0 += GROUP) {
-      for (int kk = 0; kk < GROUP; ++kk) {
+      const int n_group = min(GROUP, n_batch - k0);
+      for (int kk = 0; kk < n_group; ++kk) {
         const int k = k0 + kk;
-        float v[N_COLS];
+        // quad (0-5), channels (6..), zeros to the half's end
+        float v[HALF];
 #pragma unroll
-        for (int c = 0; c < N_COLS; ++c) v[c] = 0.f;
+        for (int c = 0; c < HALF; ++c) v[c] = 0.f;
         bool any = false;
-        if (k < n_batch && !done) {
+        if (!done) {
           const float* q = s_quad[k];
           float e;
           const float alpha = pixel_alpha(pixel_power(x, y, q), q[6], &e);
@@ -144,70 +165,70 @@ __global__ void __launch_bounds__(PIX)
             T = t_next;
           }
         }
-        // warp sums; a warp none of whose pixels took part writes zeros
+        // the warp's sums, lane c holding column c; a warp none of whose
+        // pixels took part writes zeros
+        float col = 0.f;
         if (__any_sync(FULL, any)) {
-#pragma unroll
-          for (int c = 0; c < N_COLS; ++c) {
-            float a = v[c];
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(FULL, a, o);
-            v[c] = a;
-          }
+          col = scatter16(v, lane);
+          col += __shfl_xor_sync(FULL, col, HALF);
         }
-        if (lane == 0) {
-#pragma unroll
-          for (int c = 0; c < N_COLS; ++c) s_red[kk][warp][c] = v[c];
-        }
+        if (lane < N_COLS) s_red[kk][warp * N_COLS + lane] = col;
       }
-      __syncthreads();
+      // the block leaves after this group once every pixel has stopped
+      const bool live = __syncthreads_count(!done) > 0;
 
-      // one thread per (pair of the group, output column)
-      if (tid < GROUP * N_COLS) {
-        const int kk = tid / N_COLS, c = tid % N_COLS;
-        const int k = k0 + kk;
-        if (k < n_batch) {
-          float val;
-          int col;
-          if (c < 6) {
-            float dq[6];
+      if (warp == 0) {
+        // one lane per pair: its quad columns summed over the warps and
+        // taken back to the anchor frame
+        if (lane < n_group) {
+          const int k = k0 + lane;
+          float dq[6];
 #pragma unroll
-            for (int i = 0; i < 6; ++i) {
-              float a = 0.f;
+          for (int i = 0; i < 6; ++i) {
+            float sum = 0.f;
 #pragma unroll
-              for (int wi = 0; wi < WARPS; ++wi) a += s_red[kk][wi][i];
-              dq[i] = a;
-            }
-            float anchor[6];
-            unshift_grad(dq, s_shift[k][0], s_shift[k][1], anchor);
-            val = anchor[c];
-            col = c;
-          } else {
-            float a = 0.f;
-#pragma unroll
-            for (int wi = 0; wi < WARPS; ++wi) a += s_red[kk][wi][c];
-            val = a;
-            col = feature_col(c - FEAT);
+            for (int wi = 0; wi < WARPS; ++wi)
+              sum += s_red[lane][wi * N_COLS + i];
+            dq[i] = sum;
           }
-          if (val != 0.f)
-            atomicAdd(d_table + static_cast<size_t>(s_gauss[k]) * TAB_COLS + col,
-                      val);
+          float anchor[6];
+          unshift_grad(dq, s_shift[k][0], s_shift[k][1], anchor);
+          float* out = d_table + static_cast<size_t>(s_gauss[k]) * TAB_COLS;
+#pragma unroll
+          for (int i = 0; i < 6; ++i)
+            if (anchor[i] != 0.f) atomicAdd(out + i, anchor[i]);
+        }
+      } else {
+        // the other warps: one (pair, channel) at a time
+        for (int i = tid - 32; i < n_group * NF; i += PIX - 32) {
+          const int kk = i / NF, f = i % NF;
+          float sum = 0.f;
+#pragma unroll
+          for (int wi = 0; wi < WARPS; ++wi)
+            sum += s_red[kk][wi * N_COLS + FEAT + f];
+          if (sum != 0.f)
+            atomicAdd(d_table + static_cast<size_t>(s_gauss[k0 + kk]) *
+                                    TAB_COLS + feature_col(f),
+                      sum);
         }
       }
       __syncthreads();
+      if (!live) return;
     }
   }
 }
 
 template <int NF>
 void launch(const void* table, const void* pair_gauss, const void* tile_start,
-            const void* tile_end, int n_tiles, int gx, const void* blend,
-            const void* t_final, const void* g_blend, const void* g_t_final,
-            void* d_table, cudaStream_t stream) {
+            const void* tile_end, const void* tile_order, int n_tiles, int gx,
+            const void* blend, const void* t_final, const void* g_blend,
+            const void* g_t_final, void* d_table, cudaStream_t stream) {
   raster_bwd<NF><<<n_tiles, PIX, 0, stream>>>(
       static_cast<const float*>(table), static_cast<const int*>(pair_gauss),
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_end),
-      gx, static_cast<const float*>(blend),
-      static_cast<const float*>(t_final), static_cast<const float*>(g_blend),
+      static_cast<const int64_t*>(tile_order), gx,
+      static_cast<const float*>(blend), static_cast<const float*>(t_final),
+      static_cast<const float*>(g_blend),
       static_cast<const float*>(g_t_final), static_cast<float*>(d_table));
 }
 
@@ -216,23 +237,26 @@ void launch(const void* table, const void* pair_gauss, const void* tile_start,
 // Adds the VJP of kernel 1 into d_table (N, tab_cols), which the caller
 // zeroes.  blend and t_final are kernel 1's outputs for the same
 // arguments, g_blend and g_t_final their cotangents, of the same shapes.
-// n_f = 7 and n_f = 10 are built (tab_cols = 16 + n_f - 7).  Returns the
-// launch's cudaGetLastError().
+// tile_order is a permutation of the n_tiles tiles (int64), the order in
+// which the blocks take them: heaviest first (binning.heaviest_first), so
+// that a heavy tile does not start last and set the kernel's tail.  n_f = 7
+// and n_f = 10 are built (tab_cols = 16 + n_f - 7).  Returns the launch's
+// cudaGetLastError().
 extern "C" int raster_backward(const void* table, int tab_cols,
                                const void* pair_gauss, const void* tile_start,
-                               const void* tile_end, int n_tiles, int gx,
-                               int n_f, const void* blend,
-                               const void* t_final, const void* g_blend,
-                               const void* g_t_final, void* d_table,
-                               void* stream) {
+                               const void* tile_end, const void* tile_order,
+                               int n_tiles, int gx, int n_f,
+                               const void* blend, const void* t_final,
+                               const void* g_blend, const void* g_t_final,
+                               void* d_table, void* stream) {
   if (tab_cols != TABLE_FIXED + n_f - N_FIXED_F)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TEXGS_CASE(NF)                                                       \
   case NF:                                                                   \
     if (n_tiles <= 0) return 0;                                              \
-    launch<NF>(table, pair_gauss, tile_start, tile_end, n_tiles, gx, blend,  \
-               t_final, g_blend, g_t_final, d_table, s);                     \
+    launch<NF>(table, pair_gauss, tile_start, tile_end, tile_order, n_tiles, \
+               gx, blend, t_final, g_blend, g_t_final, d_table, s);          \
     break;
   switch (n_f) {
     TEXGS_CASE(7)

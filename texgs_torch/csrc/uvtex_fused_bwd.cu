@@ -25,9 +25,10 @@
 // pixel that has stopped contributes zeros.  Each pair's gradient is a sum
 // over the tile's 256 pixels of a 32-column vector: the 6 tile-frame quad
 // coefficients and the NF blend channels fill its first half, the 12 uv-row
-// entries its second (the rest pads).  A warp reduce-scatters that vector:
-// each round halves the columns a lane holds and swaps the other half with
-// the partner lane, 16 + 8 + 4 + 2 + 1 = 31 shuffles in all, after which
+// entries its second (the rest pads).  A warp reduce-scatters that vector
+// (warp_reduce.cuh, shared with kernels 1' and 2'): each round halves the
+// columns a lane holds and swaps the other half with the partner lane,
+// 16 + 8 + 4 + 2 + 1 = 31 shuffles in all, after which
 // lane c holds column c's warp sum and stores it to shared memory itself
 // (a butterfly per column took 5 shuffles a column, 140 at F = 10, and 28
 // serial stores).  The uv half is reduced only when a ballot finds a pixel
@@ -56,6 +57,7 @@
 #include <cstring>
 
 #include "uvtex_common.cuh"
+#include "warp_reduce.cuh"
 
 namespace {
 
@@ -64,34 +66,8 @@ using namespace texgs;
 constexpr int BATCH = 64;   // pair records staged per pass
 constexpr int GROUP = 32;   // pairs whose warp sums wait in shared memory
 constexpr int WARPS = PIX / 32;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int HALF = 16;     // columns in each half of a pair's vector
 constexpr int UV_GRAD = 12;  // sv(3), siginv(6), base_uv(3)
 constexpr int FEAT = 6;      // first blend channel's column; quad before it
-
-// One round of the reduce-scatter: lanes whose bit W is set keep columns
-// W..2W-1 of the 2W they hold, the others 0..W-1; each sends its partner
-// (lane ^ W) the half the partner keeps.
-template <int W>
-__device__ __forceinline__ void scatter_round(float r[HALF], int lane) {
-  const bool up = lane & W;
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const float send = up ? r[i] : r[i + W];
-    const float keep = up ? r[i + W] : r[i];
-    r[i] = keep + __shfl_xor_sync(FULL, send, W);
-  }
-}
-
-// Reduce-scatter of 16 columns over each 16-lane half of the warp: lane l
-// returns the sum over its half of column l & 15 (15 shuffles).
-__device__ __forceinline__ float scatter16(float r[HALF], int lane) {
-  scatter_round<8>(r, lane);
-  scatter_round<4>(r, lane);
-  scatter_round<2>(r, lane);
-  scatter_round<1>(r, lane);
-  return r[0];
-}
 
 template <int NF>
 __global__ void __launch_bounds__(PIX, 4)

@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from texgs_torch import _build
-from texgs_torch.kernels.binning import PairList
+from texgs_torch.kernels.binning import PairList, tile_order_arg
 from texgs_torch.kernels.reference import TILE
 from texgs_torch.kernels.tile_raster import (COL_ANCHOR, N_FIXED_F, NEG_INF,
                                              PIX, ROW_LOGOP, TABLE_FIXED,
@@ -110,7 +110,7 @@ def raster_scan_vjp(table: torch.Tensor, pairs: PairList, gx: int,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]
-_BWD_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]
+_BWD_ARGS = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]
 
 
 def _check_args(name: str, table, pairs: PairList) -> int:
@@ -175,11 +175,12 @@ def raster_pairs_backward(table: torch.Tensor, pairs: PairList, gx: int,
                 raise ValueError(f"raster_pairs_backward: {name} and its "
                                  f"cotangent must be contiguous float32 "
                                  f"{shapes[name]} tensors on {table.device}")
+    order = tile_order_arg("raster_pairs_backward", pairs, table.device)
     d_table = torch.zeros_like(table)
     p = _build.ptr
     err = _build.function("raster_bwd", "raster_backward", _BWD_ARGS)(
         p(table), table.shape[1], p(pairs.pair_gauss), p(pairs.tile_start),
-        p(pairs.tile_end), n_tiles, gx, n_f, p(blend), p(t_final),
+        p(pairs.tile_end), p(order), n_tiles, gx, n_f, p(blend), p(t_final),
         p(g_blend), p(g_t_final), p(d_table), _build.stream_of(table))
     if err:
         raise RuntimeError(f"raster_backward failed: CUDA error {err}")

@@ -20,7 +20,8 @@ from typing import Optional
 
 import torch
 
-from texgs_torch.kernels.binning import build_pairs, grid_shape
+from texgs_torch.kernels.binning import (build_pairs, grid_shape,
+                                         with_tile_order)
 from texgs_torch.kernels.project import ProjectedGaussians
 from texgs_torch.kernels.reference import (ALPHA_CLAMP, MIN_ALPHA, T_STOP,
                                            TILE, RasterOutput)
@@ -194,7 +195,10 @@ def rasterize_tiled(proj: ProjectedGaussians, height: int, width: int,
     from texgs_torch.kernels.raster import raster_pairs
 
     pairs = build_pairs(proj.means2d, proj.depths, proj.radii, height, width)
-    tiles_out, t_final, _ = raster_pairs(build_gauss_table(proj), pairs,
+    table = build_gauss_table(proj)
+    if table.requires_grad:  # kernel 1' will take the tiles heaviest first
+        pairs = with_tile_order(pairs)
+    tiles_out, t_final, _ = raster_pairs(table, pairs,
                                          grid_shape(height, width)[1])
     out = assemble_image(tiles_out, t_final, height, width, bg, 0,
                          normalize_depth)

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from texgs_torch import _build
-from texgs_torch.kernels.binning import PairList
+from texgs_torch.kernels.binning import PairList, tile_order_arg
 from texgs_torch.kernels.tile_raster import (COL_ANCHOR, N_FIXED_F, PIX,
                                              ROW_F0, TABLE_FIXED)
 from texgs_torch.kernels.uvtex_fused import (check_float4, check_pair_args,
@@ -69,7 +69,8 @@ def mlist_only_scan_vjp(table: torch.Tensor, uv_rows: torch.Tensor,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _RAYS = ctypes.POINTER(ctypes.c_float)
 _FWD_ARGS = [_P, _I, _P, _P, _P, _P, _RAYS, _I, _I, _I, _P, _P]
-_BWD_ARGS = [_P, _I, _P, _P, _P, _P, _RAYS, _I, _I, _I, _P, _P, _P, _P, _P]
+_BWD_ARGS = [_P, _I, _P, _P, _P, _P, _P, _RAYS, _I, _I, _I, _P, _P, _P, _P,
+             _P]
 
 
 def mlist_pairs_forward(table: torch.Tensor, uv_rows: torch.Tensor,
@@ -114,14 +115,16 @@ def mlist_pairs_backward(table: torch.Tensor, uv_rows: torch.Tensor,
                              f"cotangent must be contiguous float32 {shape} "
                              f"tensors on {table.device}")
     check_float4("mlist_pairs_backward", mlist, g_mlist)
+    order = tile_order_arg("mlist_pairs_backward", pairs, table.device)
     d_table = torch.zeros_like(table)
     d_uv = torch.zeros_like(uv_rows)
     p = _build.ptr
     err = _build.function("uvtex_mlist_bwd", "uvtex_mlist_backward",
                           _BWD_ARGS)(
         p(table), table.shape[1], p(uv_rows), p(pairs.pair_gauss),
-        p(pairs.tile_start), p(pairs.tile_end), rays9(rays), n_tiles, gx, m,
-        p(mlist), p(g_mlist), p(d_table), p(d_uv), _build.stream_of(table))
+        p(pairs.tile_start), p(pairs.tile_end), p(order), rays9(rays),
+        n_tiles, gx, m, p(mlist), p(g_mlist), p(d_table), p(d_uv),
+        _build.stream_of(table))
     if err:
         raise RuntimeError(f"uvtex_mlist_backward failed: CUDA error {err}")
     if n_tiles > 0:

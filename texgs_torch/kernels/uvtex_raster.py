@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from texgs_torch.core.camera import Camera
-from texgs_torch.kernels.binning import build_pairs, grid_shape
+from texgs_torch.kernels.binning import (build_pairs, grid_shape,
+                                         with_tile_order)
 from texgs_torch.kernels.cubemap import sample_cubemap
 from texgs_torch.kernels.project import ProjectedGaussians
 from texgs_torch.kernels.reference import RasterOutput
@@ -243,6 +244,9 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
         tiles_out, t_final, mlist, _ = fused_pairs(table, uv_rows, pairs,
                                                    rays, gx, m)
     else:
+        if table.requires_grad or uv_rows.requires_grad:
+            # kernels 1' and 2' take the tiles heaviest first
+            pairs = with_tile_order(pairs)
         tiles_out, t_final, _ = raster_pairs(table, pairs, gx)
         mlist = mlist_pairs(table, uv_rows, pairs, rays, gx, m)
     base = assemble_image(tiles_out, t_final, height, width, bg, n_extra)
