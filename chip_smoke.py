@@ -17,7 +17,9 @@ one card.  Phases, in order; any failure exits non-zero:
                 cubemap, 800x600 views, m = 32;
   4. kernels -- each kernel against its plain PyTorch version on the card,
                 on the inputs the main path gives it for the first view;
-                kernel B also on cube edge and corner directions;
+                kernel A also with its tiles in launch order instead of
+                the pair list's heaviest-first order (the same outputs bit
+                for bit); kernel B also on cube edge and corner directions;
   5. main    -- 3 orbit views through TextureGaussian3D.visual_step, a
                 change_texture(chessboard, mode=0) retexture, the 3 views
                 again; every kernel's launch count is read over this phase;
@@ -1823,6 +1825,19 @@ def main() -> int:
         want_a = mlist_scan(*a_args)
         torch.cuda.synchronize()
         err_a = check_kernel_a(torch, got_a, want_a)
+        # the order in which A takes the tiles changes no output bit
+        if pairs.tile_order is None:
+            fail("the render handed kernel A a pair list without its tile "
+                 "order")
+        in_launch_order = fused_pairs(table, uv_rows, pairs._replace(
+            tile_order=torch.arange(pairs.tile_counts.numel(), device=device)),
+            *a_args[3:])
+        same = [torch.equal(x, y) for x, y in zip(got_a, in_launch_order)]
+        log(f"  A with its tiles in launch order: blend, T_final, M-lists, "
+            f"n_eval equal to the heaviest-first outputs bit for bit: {same}")
+        if not all(same):
+            fail("kernel A's outputs depend on the order it takes the tiles "
+                 "in")
 
         got_b = tex_term(*b_args)
         want_b = mlist_tex_term(*b_args)

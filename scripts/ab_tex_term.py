@@ -1,0 +1,513 @@
+#!/usr/bin/env python3
+"""A/B timing of kernels B' (texgs_torch/csrc/tex_term_bwd.cu) and A
+(texgs_torch/csrc/uvtex_fused.cu) against variants of themselves and
+against another tree's sources, on an NVIDIA H100.
+
+Run from the repository root on a machine with the card:
+
+    python3 scripts/ab_tex_term.py [--parent DIR] [--no-time]
+
+DIR is the root of another checkout of the repository (the parent commit
+unpacked with `git archive` into the git-ignored build/, say); its
+texgs_torch/csrc sources are built as the variant "parent" of each kernel.
+
+Builds chip_smoke.py's flagship stage-3 model (100,000 Gaussians, 800x600,
+m = 32, F = 10; the model gives no F = 7 call) and captures the arguments
+the main path hands the kernels: A's from the render of view 0 and from
+one training step of configs/prod_texture.yaml's joint phase, B''s from
+that step.  It counts, with plain torch ops on the card, what B''s texel
+scatter issues: the scalar atomics of one thread per pixel (3 a live slot's
+tap texel), the (warp, tap, texel) groups a warp merge (the variant
+warp_merge) would add instead, the distinct (warp, texel) and
+(block, texel) pairs, how many of a pixel's live slots share a tap texel
+with another of its slots, and the shuffle rounds the merge takes; and A's
+dead slots.  Each variant in VARIANTS is a kernel's
+source with a few text substitutions, compiled with texgs_torch._build's
+flags (ptxas reports printed: registers, shared memory, spills) and checked
+against the committed source's output: B' at chip_smoke.py's tolerances,
+A bit for bit.  With --no-time it stops there.  Otherwise each capture's
+variants are timed in turns, first to last and last to first ("parent"
+first), each turn the median of 5 queued CUDA-event timings of the wrapper
+(chip_smoke.median_ms), and once under torch.profiler (the kernel's own
+device time, and the wrapper's other device work); then the render of view
+0 and the training step are timed with A's tiles heaviest first (the
+committed tree) and in launch order without the sort, in turns.  Needs one
+card and imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "scripts"))
+
+# kernel A taking the tiles in launch order
+LAUNCH_ORDER = [("const int tile = static_cast<int>(tile_order[blockIdx.x]);",
+                 "const int tile = blockIdx.x;")]
+ADD_V4 = "  atomicAdd(d_acc + t, make_float4(v.x, v.y, v.z, 0.f));"
+KERNEL = "__global__ void __launch_bounds__(BLOCK)\n    tex_term_backward("
+DIRECT = """    if (t.n > 0 && t.weight != 0.f) {
+      // constant indices keep the taps in registers
+      add_texel(d_acc, t.idx[0], v);
+      if (t.n == 3) {
+        add_texel(d_acc, t.idx[1], v);
+        add_texel(d_acc, t.idx[2], v);
+      }
+    }"""
+# the scatter merged over the warp, one round a tap and two more for a
+# corner tap's other texels: the lanes offering one texel find each other
+# with __match_any_sync and the lowest adds their sum (merge_add)
+MERGED = """    const int lane = threadIdx.x & 31;
+    const bool adds = t.n > 0 && t.weight != 0.f;
+    merge_add(d_acc, adds ? t.idx[0] : -1 - lane, v, lane);
+    if (__any_sync(0xffffffffu, adds && t.n == 3)) {
+      const bool corner = adds && t.n == 3;
+      merge_add(d_acc, corner ? t.idx[1] : -1 - lane, v, lane);
+      merge_add(d_acc, corner ? t.idx[2] : -1 - lane, v, lane);
+    }"""
+# merge_add summing a group by shuffles into its lowest lane (lane order),
+# every lane shuffling as often as the largest group needs; a lane with
+# nothing to add passes a negative key of its own
+SHUFFLE_SUMS = """__device__ __forceinline__ void merge_add(float4* __restrict__ d_acc,
+                                          int key, float3 v, int lane) {
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  const bool lead = __ffs(peers) - 1 == lane;
+  unsigned rest = lead ? peers & (peers - 1) : 0u;
+  const unsigned rounds = __reduce_max_sync(
+      0xffffffffu, static_cast<unsigned>(__popc(rest)));
+  for (unsigned r = 0; r < rounds; ++r) {
+    const int src = rest ? __ffs(rest) - 1 : lane;
+    const float x = __shfl_sync(0xffffffffu, v.x, src);
+    const float y = __shfl_sync(0xffffffffu, v.y, src);
+    const float z = __shfl_sync(0xffffffffu, v.z, src);
+    if (rest) {
+      v.x += x;
+      v.y += y;
+      v.z += z;
+      rest &= rest - 1;
+    }
+  }
+  if (key >= 0 && lead) add_texel(d_acc, key, v);
+}
+
+"""
+# merge_add summing a group by shared-memory atomics into its lowest
+# lane's row of the warp's
+SHARED_SUMS_FN = """__device__ __forceinline__ void merge_add(float4* __restrict__ d_acc,
+                                          int key, float3 v, int lane) {
+  __shared__ float s_sum[BLOCK / 32][32][4];
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  const int leader = __ffs(peers) - 1;
+  const bool alone = peers == (1u << lane);
+  float* sum = s_sum[threadIdx.x >> 5][leader];
+  if (!alone && leader == lane) {
+    sum[0] = v.x;
+    sum[1] = v.y;
+    sum[2] = v.z;
+  }
+  __syncwarp();
+  if (!alone && leader != lane) {
+    atomicAdd(sum, v.x);
+    atomicAdd(sum + 1, v.y);
+    atomicAdd(sum + 2, v.z);
+  }
+  __syncwarp();
+  if (!alone && leader == lane) v = make_float3(sum[0], sum[1], sum[2]);
+  __syncwarp();
+  if (key >= 0 && leader == lane) add_texel(d_acc, key, v);
+}
+
+"""
+WARP_MERGE = [(KERNEL, SHUFFLE_SUMS + KERNEL), (DIRECT, MERGED)]
+SHARED_SUMS = [(KERNEL, SHARED_SUMS_FN + KERNEL), (DIRECT, MERGED)]
+# B' as first designed: the warp merge, and three scalar atomics a texel
+# group into the unpadded (6, R, R, 3) gradient (no pack)
+SCALAR = WARP_MERGE + [(ADD_V4, """  float* p = reinterpret_cast<float*>(d_acc) + static_cast<size_t>(t) * 3;
+  atomicAdd(p, v.x);
+  atomicAdd(p + 1, v.y);
+  atomicAdd(p + 2, v.z);""")]
+# the same with a float2 and a scalar atomic a texel group (a texel's 12
+# bytes hold one 8-byte-aligned pair)
+V2_SPLIT = WARP_MERGE + [(ADD_V4, """  float* p = reinterpret_cast<float*>(d_acc) + static_cast<size_t>(t) * 3;
+  if (t & 1) {
+    atomicAdd(p, v.x);
+    atomicAdd(reinterpret_cast<float2*>(p + 1), make_float2(v.y, v.z));
+  } else {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v.x, v.y));
+    atomicAdd(p + 2, v.z);
+  }""")]
+# B' without its texel scatter: a floor for the rest of the kernel, timed
+# but not checked (it computes no texture gradient)
+NO_SCATTER = [(ADD_V4, "")]
+UNCHECKED = {"no_scatter"}
+# variants called as the parent's C entry is: into a zeroed (6, R, R, 3)
+# gradient, with no pack (call_unpadded)
+UNPADDED = {"parent", "scalar", "v2_split"}
+VARIANTS = {
+    "tex_term_bwd": {"committed": [], "warp_merge": WARP_MERGE,
+                     "shared_sums": SHARED_SUMS, "scalar": SCALAR,
+                     "v2_split": V2_SPLIT, "no_scatter": NO_SCATTER},
+    "uvtex_fused": {"committed": [], "launch_order": LAUNCH_ORDER},
+}
+# a parent whose kernel A takes no tile order: its C entry gains an
+# argument it ignores, so that this tree's wrapper calls it
+PARENT = {
+    "tex_term_bwd": [],
+    "uvtex_fused": [("const void* tile_end, const float* rays9,",
+                     "const void* tile_end, const void*, "
+                     "const float* rays9,")],
+}
+# the kernel function each library launches, as torch.profiler names it
+KERNEL_NAMES = {"tex_term_bwd": "tex_term_backward",
+                "uvtex_fused": "fused_forward"}
+
+
+def tap_texels(torch, dirs, res):
+    """The texels of each direction's 4 seamless bilinear taps, as
+    csrc/cubemap_taps.cuh picks them: ((N, 4, 3) linear texel indices, -1
+    past a tap's count, (N, 4) scatter weights: a third at a cube
+    corner)."""
+    from texgs_torch.kernels.cubemap import (_texel_index,
+                                             direction_to_face_uv,
+                                             face_uv_to_direction)
+
+    face, u, v = direction_to_face_uv(dirs)
+    fu = (u * 0.5 + 0.5) * res - 0.5
+    fv = (v * 0.5 + 0.5) * res - 0.5
+    x0, y0 = torch.floor(fu), torch.floor(fv)
+    wx, wy = fu - x0, fv - y0
+    lim = 1.0 - 1.0 / res
+
+    def reresolve(u_t, v_t):
+        f2, u2, v2 = direction_to_face_uv(face_uv_to_direction(face, u_t, v_t))
+        return (f2 * res + _texel_index(v2, res)) * res + _texel_index(u2, res)
+
+    idx, weights = [], []
+    for xi, yi, w in ((x0, y0, (1 - wx) * (1 - wy)), (x0 + 1, y0, wx * (1 - wy)),
+                      (x0, y0 + 1, (1 - wx) * wy), (x0 + 1, y0 + 1, wx * wy)):
+        xc = torch.clamp(xi.to(torch.int64), 0, res - 1)
+        yc = torch.clamp(yi.to(torch.int64), 0, res - 1)
+        home = (face * res + yc) * res + xc
+        u_t = (xi + 0.5) / res * 2.0 - 1.0
+        v_t = (yi + 0.5) / res * 2.0 - 1.0
+        out_u, out_v = u_t.abs() > 1.0, v_t.abs() > 1.0
+        corner = out_u & out_v
+        p = reresolve(u_t, torch.clamp(v_t, -lim, lim))
+        q = reresolve(torch.clamp(u_t, -lim, lim), v_t)
+        none = torch.full_like(home, -1)
+        idx.append(torch.stack([
+            torch.where(out_u, p, torch.where(out_v, q, home)),
+            torch.where(corner, q, none), torch.where(corner, home, none)], -1))
+        weights.append(torch.where(corner, w / 3.0, w))
+    return torch.stack(idx, 1), torch.stack(weights, 1)
+
+
+def b_scatter_counts(torch, mlist, texture, g_img, height, width):
+    """What B''s texel scatter issues on these arguments (seamless
+    bilinear, the main path's filter): a dict of counts."""
+    from texgs_torch.kernels.binning import grid_shape
+
+    n_tiles, pix, m, _ = mlist.shape
+    gy, gx = grid_shape(height, width)
+    pad = torch.zeros((3, gy * 16, gx * 16), device=mlist.device)
+    pad[:, :height, :width] = g_img
+    has_g = (pad.reshape(3, gy, 16, gx, 16).permute(1, 3, 2, 4, 0)
+             .reshape(n_tiles * pix, 3) != 0).any(-1)
+    flat = mlist.reshape(-1, 4)
+    slot = torch.arange(flat.shape[0], device=mlist.device)
+    live = (flat[:, 0] != 0) & has_g[slot // m]
+    s = slot[live]
+    idx, w = tap_texels(torch, flat[live, 1:4], texture.shape[1])
+    n_live = int(s.numel())
+    # one entry per (live slot, tap, texel) the scatter adds into
+    take = (idx >= 0) & (w != 0)[..., None]
+    ent_s = s[:, None, None].expand_as(idx)[take]
+    ent_k = torch.arange(4, device=s.device)[None, :, None].expand_as(idx)[take]
+    ent_j = torch.arange(3, device=s.device)[None, None, :].expand_as(idx)[take]
+    ent_t = idx[take]
+    n_tex = 6 * texture.shape[1] ** 2
+    warp = ent_s // 32
+    # the warp merge (variant warp_merge), one round a tap: (warp, tap,
+    # texel of the tap, texel)
+    round_key = (warp * 12 + ent_k * 3 + ent_j) * n_tex + ent_t
+    groups, sizes = torch.unique(round_key, return_counts=True)
+    # shuffle rounds: per (warp, tap, j) the largest group less one
+    per_round = groups // n_tex
+    rounds_key, inv = torch.unique(per_round, return_inverse=True)
+    largest = torch.zeros(rounds_key.numel(), dtype=sizes.dtype,
+                          device=s.device).scatter_reduce_(
+        0, inv, sizes, "amax")
+    warp_texel = torch.unique(warp * n_tex + ent_t).numel()
+    block_texel = torch.unique((ent_s // 256) * n_tex + ent_t).numel()
+    # the live slots of each (pixel, texel), and the slots that share a
+    # tap texel with another slot of their pixel
+    pt_key = (ent_s // m) * n_tex + ent_t
+    pt, pt_inv = torch.unique(pt_key, return_inverse=True)
+    slot_pt = torch.unique(pt_key * m + ent_s % m)  # (pixel, texel, slot)
+    per_pt = torch.zeros(pt.numel(), dtype=torch.int64,
+                         device=s.device).index_add_(
+        0, torch.searchsorted(pt, slot_pt // m), torch.ones_like(slot_pt))
+    sharing = torch.zeros(flat.shape[0], dtype=torch.bool, device=s.device)
+    sharing[ent_s[per_pt[pt_inv] >= 2]] = True
+    most = torch.zeros(n_tiles * pix, dtype=torch.int64,
+                       device=s.device).scatter_reduce_(0, pt // n_tex,
+                                                        per_pt, "amax")
+    n_pixels = int((most > 0).sum())
+    return {"slots": flat.shape[0], "live slots (w != 0, g != 0)": n_live,
+            "tap texels (the committed kernel's vector atomics)":
+                int(ent_t.numel()),
+            "corner taps": int((ent_j == 1).sum()),
+            "scalar atomics, one thread a pixel": 3 * int(ent_t.numel()),
+            "merged groups, a round a tap (warp, tap, texel)":
+                int(groups.numel()),
+            "scalar atomics, merged": 3 * int(groups.numel()),
+            "distinct (warp, texel)": int(warp_texel),
+            "distinct (256-slot block, texel)": int(block_texel),
+            "largest group": int(sizes.max()) if sizes.numel() else 0,
+            "mean group": float(sizes.float().mean()) if sizes.numel() else 0,
+            "shuffle rounds (sum over warps and merge rounds)":
+                int((largest - 1).sum()),
+            "merge rounds (warp, tap, j)": int(rounds_key.numel()),
+            "live slots sharing a tap texel with another slot of the pixel":
+                int(sharing.sum()),
+            "pixels with a live slot": n_pixels,
+            "mean over those pixels of the most live slots on one texel":
+                float(most.sum()) / max(n_pixels, 1)}
+
+
+def captures(torch, cs, device):
+    """(view 0's A arguments, the step's A arguments, the step's B'
+    arguments, the model, its cameras, its step function)."""
+    from texgs_torch.data.synthetic import orbit_cameras
+    from texgs_torch.kernels import tex_term as kt
+    from texgs_torch.kernels import uvtex_fused as kf
+    from texgs_torch.kernels.cubemap import chessboard_cubemap, faces_to_cross
+
+    model, _ = cs.build_model(torch, device)
+    cams = orbit_cameras(cs.N_VIEWS, radius=3.5, width=cs.WIDTH,
+                         height=cs.HEIGHT)
+    with torch.no_grad():
+        a_view, _ = cs.main_path_kernel_args(model, cams[0])
+        views = [model.visual_step(0, 1, c) for c in cams]
+    model.change_texture(faces_to_cross(chessboard_cubemap(
+        cs.TEX_RES // 16, 16, device=device)), mode=0)
+    step = cs.stage3_stepper(model, cams, views)
+    seen = {}
+    with cs.recording(kf, "fused_pairs", seen), \
+            cs.recording(kt, "tex_term_backward", seen):
+        step(cs.FIRST_ITER)
+    return (a_view, seen["fused_pairs"], seen["tex_term_backward"], model,
+            cams, step)
+
+
+def call_unpadded(torch, lib, args):
+    """Kernel B' of a library whose C entry adds into the (6, R, R, 3)
+    gradient itself (the parent's, UNPADDED): the wrapper's call with a
+    zeroed gradient and no pack."""
+    from texgs_torch import _build
+    from texgs_torch.kernels.tex_term import FILTER_MODES, _I, _P
+
+    mlist, texture, g_img, height, width, mode = args
+    n_tiles, _, m, _ = mlist.shape
+    d_mlist = torch.empty_like(mlist)
+    d_texture = torch.zeros_like(texture)
+    fn = lib.tex_term_backward
+    fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+    p = _build.ptr
+    err = fn(p(mlist), p(texture), texture.shape[1], FILTER_MODES[mode],
+             n_tiles, m, -(-width // 16), height, width, p(g_img), p(d_mlist),
+             p(d_texture), _build.stream_of(mlist))
+    if err:
+        raise RuntimeError(f"tex_term_backward: CUDA error {err}")
+    return d_mlist, d_texture
+
+
+def check_b(torch, cs, got, want, mlist, label):
+    live = mlist[..., 0] != 0
+    err = max(
+        cs.check_scaled(torch, f"{label} d texture", got[1], want[1], 1e-4,
+                        1e-3),
+        cs.check_scaled(torch, f"{label} d w (live slots)", got[0][live][:, 0],
+                        want[0][live][:, 0], 1e-4, 1e-3),
+        cs.check_scaled(torch, f"{label} d uv (live slots)",
+                        got[0][live][:, 1:], want[0][live][:, 1:], 1e-4, 1e-3))
+    if got[0][~live].any():
+        cs.fail(f"{label}: a cotangent in a dead slot")
+    return err
+
+
+def check_a(torch, cs, got, want, label):
+    same = [torch.equal(g, w) for g, w in zip(got, want)]
+    cs.log(f"  {label}: blend, T_final, M-lists, n_eval bit for bit: {same}")
+    if not all(same):
+        cs.fail(f"{label}: kernel A's outputs differ")
+
+
+@contextlib.contextmanager
+def launch_order(torch, cs, kf, uvr):
+    """The fused path without the heaviest-first sort: the render hands A
+    its pair list as built, and A's wrapper passes a cached arange (no
+    device work), for a library whose kernel ignores the order."""
+    cache = {}
+
+    def arange(name, pairs, device):
+        n = pairs.tile_counts.numel()
+        if n not in cache:
+            cache[n] = torch.arange(n, device=device)
+        return cache[n]
+
+    with cs.swapped(kf, "tile_order_arg", arange), \
+            cs.swapped(uvr, "with_tile_order", lambda pairs: pairs):
+        yield
+
+
+def main() -> int:
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", help="root of another checkout, whose "
+                        "kernel sources are built as the variant 'parent'")
+    parser.add_argument("--no-time", action="store_true",
+                        help="count, build and check; time nothing")
+    opts = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("ab_tex_term: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from ab_fused_bwd import build_variants
+    from ab_raster_bwd import profile_call
+    from texgs_torch import _build
+    from texgs_torch.kernels import binning
+    from texgs_torch.kernels import tex_term as kt
+    from texgs_torch.kernels import uvtex_fused as kf
+    from texgs_torch.kernels import uvtex_raster as uvr
+
+    device = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"[device] {card}", flush=True)
+    out_dir = ROOT / "build" / "texgs_torch" / "ab_tex_term"
+    libs = {}
+    for source, variants in VARIANTS.items():
+        variants = dict(variants)
+        csrc = {}
+        if opts.parent:
+            variants = {"parent": PARENT[source], **variants}
+            csrc["parent"] = Path(opts.parent) / "texgs_torch" / "csrc"
+        libs[source] = build_variants(source, variants, out_dir, csrc)
+
+    a_view, a_step, b_args, model, cams, step = captures(torch, cs, device)
+    mlist, texture, g_img, height, width, mode = b_args
+    with torch.no_grad():
+        counts = b_scatter_counts(torch, mlist, texture, g_img, height, width)
+    print(f"[count] B' on the step-{cs.FIRST_ITER} arguments ({mode}, "
+          f"{texture.shape[1]}^2 cubemap, m = {mlist.shape[2]}):", flush=True)
+    for k, v in counts.items():
+        print(f"  {k}: {v}", flush=True)
+    for label, args in (("view 0", a_view), ("step", a_step)):
+        with torch.no_grad():
+            out = kf.fused_pairs_forward(*args)
+        w = out[2][..., 0]
+        pairs = args[2]
+        print(f"[count] A, {label}: {int(pairs.n_pairs)} pairs over "
+              f"{pairs.tile_counts.numel()} tiles (mean "
+              f"{pairs.tile_counts.float().mean().item():.1f}, max "
+              f"{int(pairs.tile_counts.max())}); {int((w != 0).sum())} live "
+              f"of {w.numel()} slots, {int((w == 0).sum()) * 16 / 1e6:.1f} MB "
+              f"of dead slots; tile order set: {pairs.tile_order is not None}",
+              flush=True)
+
+    tests = {"B' (step)": ("tex_term_bwd", b_args),
+             "A (view 0)": ("uvtex_fused", a_view),
+             "A (step)": ("uvtex_fused", a_step)}
+    wrappers = {"tex_term_bwd": kt.tex_term_backward,
+                "uvtex_fused": kf.fused_pairs_forward}
+    for label, (source, args) in tests.items():
+        def call(name, source=source, args=args):
+            if source == "tex_term_bwd" and name in UNPADDED:
+                return call_unpadded(torch, libs[source][name], args)
+            _build._loaded[source] = libs[source][name]
+            return wrappers[source](*args)
+
+        names = list(libs[source])
+        with torch.no_grad():
+            want = call("committed")
+            for name in names:
+                if name == "committed" or name in UNCHECKED:
+                    continue
+                if source == "tex_term_bwd":
+                    check_b(torch, cs, call(name), want, mlist,
+                            f"{label} {name} vs committed")
+                else:
+                    check_a(torch, cs, call(name), want,
+                            f"{label} {name} vs committed")
+            if opts.no_time:
+                continue
+            times = {name: [] for name in names}
+            for name in names + names[::-1]:
+                times[name].append(cs.median_ms(torch, lambda: call(name),
+                                                queued=True))
+            for name in names:
+                t = times[name]
+                k_ms, other = profile_call(torch, cs, lambda: call(name),
+                                           KERNEL_NAMES[source], cs.REPS)
+                rest = "; ".join(f"{k} {ms:.4f} ms x{n:g}"
+                                 for k, (ms, n) in other.items())
+                k_txt = "not seen" if k_ms is None else f"{k_ms:.4f} ms"
+                print(f"[time] {label} {name}: queued {t[0]:.4f} and "
+                      f"{t[1]:.4f} ms (median of {cs.REPS} each turn), "
+                      f"profiler kernel {k_txt}; other device work a call: "
+                      f"{rest or 'none'}", flush=True)
+        _build._loaded[source] = libs[source]["committed"]
+
+    if not opts.no_time:
+        counts_t = a_view[2].tile_counts
+        sort_ms = cs.median_ms(torch, lambda: binning.heaviest_first(counts_t),
+                               queued=True)
+        sort_n, _ = cs.device_launches(
+            torch, lambda: binning.heaviest_first(counts_t))
+        print(f"[time] the heaviest-first order alone: {sort_ms:.4f} ms "
+              f"queued, {sort_n} device launches", flush=True)
+        it = [cs.FIRST_ITER + 1]
+
+        def timed_step():
+            step(it[0])
+            it[0] += 1
+
+        def render():
+            with torch.no_grad():
+                return model.render(cams[0])
+
+        walls = {}
+        for turn in ("heaviest first", "launch order", "launch order",
+                     "heaviest first") * 2:
+            lib = "launch_order" if turn == "launch order" else "committed"
+            _build._loaded["uvtex_fused"] = libs["uvtex_fused"][lib]
+            ctx = (launch_order(torch, cs, kf, uvr) if turn == "launch order"
+                   else contextlib.nullcontext())
+            with ctx:
+                r_ms = cs.median_ms(torch, render)
+                s_ms = cs.median_ms(torch, timed_step)
+                r_n, _ = cs.device_launches(torch, render)
+            walls.setdefault(turn, []).append((r_ms, s_ms, r_n))
+        _build._loaded["uvtex_fused"] = libs["uvtex_fused"]["committed"]
+        for turn, rows in walls.items():
+            print(f"[time] A's tiles {turn}: render of view 0 "
+                  + " and ".join(f"{r:.3f}" for r, _, _ in rows)
+                  + " ms, training step "
+                  + " and ".join(f"{s:.3f}" for _, s, _ in rows)
+                  + f" ms (medians of {cs.REPS}, {len(rows)} turns); render device "
+                  f"launches {rows[0][2]}", flush=True)
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

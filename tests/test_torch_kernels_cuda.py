@@ -387,6 +387,70 @@ def test_tex_term_backward_through_autograd(cuda_device):
     torch.testing.assert_close(d_ml[live], d_ml_w[live], atol=3e-5, rtol=1e-3)
 
 
+def assert_tex_term_backward_matches_plain(ml, tex, g, height, width, mode):
+    """Kernel B' against its plain version at this file's B' tolerances;
+    dead slots and pixels without a cotangent get zeros."""
+    before = tex_term_backward.launches
+    d_ml, d_tex = tex_term_backward(ml, tex, g, height, width, mode)
+    torch.cuda.synchronize()
+    assert tex_term_backward.launches == before + 1
+    d_ml_w, d_tex_w = mlist_tex_term_vjp(ml, tex, g, height, width, mode)
+    torch.testing.assert_close(d_tex, d_tex_w, atol=1e-5, rtol=1e-3)
+    live = ml[..., 0] != 0
+    torch.testing.assert_close(d_ml[live], d_ml_w[live], atol=3e-5, rtol=1e-3)
+    assert not bool(d_ml[~live].any())
+    # a pixel without a cotangent (outside the frame, or g = 0) gets none
+    gy, gx = binning.grid_shape(height, width)
+    pad = torch.zeros((3, gy * 16, gx * 16), device=g.device)
+    pad[:, :height, :width] = g
+    g_tiles = pad.reshape(3, gy, 16, gx, 16).permute(1, 3, 2, 4, 0).reshape(
+        gy * gx, 256, 3)
+    assert not bool(d_ml[(g_tiles == 0).all(-1)].any())
+    return d_tex
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bilinear", "nearest", "bilinear_clamp"])
+@pytest.mark.parametrize("m", [1, 4, 33])
+def test_tex_term_backward_where_warps_straddle_pixels(cuda_device, m, mode):
+    """B' runs one thread per slot, so at m = 1, 4 and 33 a warp holds
+    slots of several pixels; the 40 x 56 frame has partial edge tiles, and
+    a quarter of its pixels get a zero cotangent."""
+    ml = random_mlist(12, m, seed=m).to(cuda_device)
+    tex = random_texture(16).to(cuda_device)
+    rng = np.random.default_rng(m + 1)
+    g = rng.normal(size=(3, 40, 56)) * (rng.uniform(size=(1, 40, 56)) < 0.75)
+    assert_tex_term_backward_matches_plain(
+        ml, tex, torch.as_tensor(g, dtype=torch.float32, device=cuda_device),
+        40, 56, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 32])
+@pytest.mark.parametrize("corner", [False, True], ids=["texel", "corner"])
+def test_tex_term_backward_with_every_slot_on_one_texel(cuda_device, corner,
+                                                         m):
+    """Every live slot of every pixel points one way: inside face 0, so
+    all taps land on the same 4 texels, or at the (+1, +1, +1) cube
+    corner, whose seamless taps average 3 texels; up to 32 lanes of a warp
+    then add into one texel."""
+    rng = np.random.default_rng(m)
+    n = 4 * 256 * m
+    d = np.array([1.0, 1.0, 1.0] if corner else [1.0, 0.1, 0.2])
+    w = rng.uniform(0.01, 0.3, size=(n, 1)) * (rng.uniform(size=(n, 1)) < 0.7)
+    dirs = d * rng.uniform(0.5, 2.0, size=(n, 1))
+    ml = torch.as_tensor(np.concatenate([w, dirs], axis=1), dtype=torch.float32,
+                         device=cuda_device).reshape(4, 256, m, 4)
+    tex = random_texture(16).to(cuda_device)
+    g = torch.as_tensor(rng.normal(size=(3, 32, 32)), dtype=torch.float32,
+                        device=cuda_device)
+    for mode in ("bilinear", "bilinear_clamp"):
+        d_tex = assert_tex_term_backward_matches_plain(ml, tex, g, 32, 32, mode)
+        touched = int((d_tex.abs().sum(-1) > 0).sum())
+        assert touched == (3 if corner and mode == "bilinear"
+                           else 1 if corner else 4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("levels,size,n", [(8, 4096, 8192), (2, 256, 1000)])
 def test_hash_gather_kernel_matches_plain(cuda_device, levels, size, n):
@@ -692,6 +756,63 @@ def edge_count_inputs(counts, n_extra=3, m=32):
             binning.with_tile_order(edge), rays, gx, m)
 
 
+# EDGE_COUNTS with tiles on and beside kernel A's batch of 256 staged
+# records
+A_EDGE_COUNTS = {"ascending": (0, 1, 31, 32, 33, 63, 64, 65, 129, 255, 256,
+                               257, 897),
+                 "shuffled": (64, 897, 256, 0, 33, 129, 1, 255, 65, 31, 63,
+                              257, 32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", list(A_EDGE_COUNTS))
+def test_fused_kernel_at_batch_edges(cuda_device, order):
+    """Kernel A on tiles of A_EDGE_COUNTS pairs, taken heaviest first and in
+    launch order: the outputs are the same bit for bit, and agree with the
+    plain version."""
+    counts = A_EDGE_COUNTS[order]
+    table, uv_rows, pairs, rays, gx, m = _to(cuda_device,
+                                             edge_count_inputs(counts))
+    got = fused_pairs(table, uv_rows, pairs, rays, gx, m)
+    launch_order = pairs._replace(tile_order=torch.arange(
+        len(counts), device=cuda_device))
+    assert not torch.equal(pairs.tile_order, launch_order.tile_order)
+    again = fused_pairs(table, uv_rows, launch_order, rays, gx, m)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert got[3].amax(-1).tolist() == list(counts)
+    want = mlist_scan(table, uv_rows, pairs, rays, gx, m)
+    assert _pixels_off(got, want) <= 4
+    for a, b in ((got[0], want[0]), (got[1], want[1]),
+                 (got[2][..., 0], want[2][..., 0])):
+        assert (a - b).abs().max().item() <= 0.05
+
+
+@pytest.mark.cuda
+def test_fused_kernel_dead_slots_zero_over_nan_memory(cuda_device):
+    """Kernel A writes every slot of its M-lists: where the caching
+    allocator hands it a block that held NaN, the dead slots (those after
+    a pixel's last entry) come out exactly zero."""
+    args = _to(cuda_device, kernel_a_inputs(m=32))
+    shape = (args[2].tile_counts.numel(), 256, 32, 4)
+    junk = [torch.full(shape, float("nan"), device=cuda_device)
+            for _ in range(4)]
+    ptrs = {t.data_ptr() for t in junk}
+    del junk
+    got = fused_pairs(*args)
+    torch.cuda.synchronize()
+    mlist = got[2]
+    assert mlist.data_ptr() in ptrs
+    assert bool(torch.isfinite(mlist).all())
+    w = mlist[..., 0]
+    n_live = (w != 0).sum(-1, keepdim=True)
+    dead = torch.arange(32, device=cuda_device) >= n_live
+    assert bool((w[~dead] > 0).all())
+    assert not bool(mlist[dead].any())
+    assert _pixels_off(got, mlist_scan(*args)) <= 4
+
+
 def _raster_pixels_off(got, want):
     """Pixels where kernel 1 and its plain version disagree: a channel or
     T_final beyond atol 1e-5 (1e-6 for T) + rtol 1e-4, or another n_eval."""
@@ -757,6 +878,38 @@ def test_tile_order_set_where_a_render_is_differentiated(monkeypatch, grad):
                            binning.heaviest_first(pairs.tile_counts))
     else:
         assert pairs.tile_order is None
+
+
+@pytest.mark.parametrize("grad", [True, False], ids=["train", "render"])
+def test_tile_order_set_on_the_fused_path(monkeypatch, grad):
+    """rasterize_uvtex hands kernel A a pair list with its tile order (A
+    takes the tiles heaviest first), in a render and where the render is
+    differentiated."""
+    from texgs_torch.kernels import uvtex_fused as kf
+
+    n = 300
+    pcd = textured_sphere_point_cloud(n, seed=0)
+    st = init_from_pcd(pcd.points, pcd.colors, 1, device="cpu")
+    cam = orbit_cameras(1, radius=3.5, width=48, height=32)[0]
+    xyz = st.xyz.clone().requires_grad_(grad)
+    scaling, rot = torch.exp(st.scaling), st.rotation
+    campos = torch.as_tensor(cam.camera_center)
+    proj = project.project_gaussians(
+        xyz, scaling, rot, torch.full((n, 1), 0.6), torch.zeros_like(st.xyz),
+        torch.as_tensor(cam.world_view), torch.as_tensor(cam.full_proj),
+        campos, 48, 32, cam.tanfovx, cam.tanfovy)
+    uvs = xyz / torch.linalg.norm(xyz, dim=-1, keepdim=True)
+    seen = []
+    fused = kf.fused_pairs
+    monkeypatch.setattr(kf, "fused_pairs",
+                        lambda *a: seen.append(a[2]) or fused(*a))
+    uvtex_raster.rasterize_uvtex(
+        proj, scaling, rot, xyz, uvs, torch.zeros((n, 9)),
+        random_texture(8), torch.zeros((n, 15, 3)), 1, cam, torch.zeros(3),
+        m=8)
+    (pairs,) = seen
+    assert torch.equal(pairs.tile_order,
+                       binning.heaviest_first(pairs.tile_counts))
 
 
 @pytest.mark.cuda

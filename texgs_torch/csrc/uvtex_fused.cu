@@ -5,18 +5,23 @@
 // (_fused_fwd_kernel, launched by fused_pairs at :263 / :303).  Plain
 // PyTorch version: texgs_torch/kernels/uvtex_fused.py, mlist_scan.
 //
-// Design.  One thread block per 16x16 tile and one thread per pixel.  The
-// block walks its tile's pairs [tile_start, tile_end) in batches of BATCH:
+// Design.  One thread block per 16x16 tile and one thread per pixel; the
+// blocks take the tiles in the pair list's tile order, heaviest first
+// (binning.heaviest_first), so that a heavy tile does not start last and
+// set the kernel's tail.  The block walks its tile's pairs
+// [tile_start, tile_end) in batches of BATCH:
 // each thread stages one pair's record into shared memory (the Gaussian's
 // exponent quadratic shifted into this tile's frame, its blend channels
 // and its uv row, all read by Gaussian index), then every pixel runs the
 // sequential front-to-back loop over the batch, reading the records as
 // shared-memory broadcasts.  A pixel writes slot `count` of its M-list
 // while count < m, and the block leaves as soon as every pixel has stopped
-// (__syncthreads_count).  On the TPU the grid walked 128-pair chunks in
-// order and carried T, `done` and the list count in scratch from one grid
-// step to the next; here those carries are registers of the pixel's
-// thread.
+// (__syncthreads_count).  Then the block zeroes the tile's dead slots
+// (count..m-1 of every pixel) in flat order, slot fastest, so that a
+// warp's zero stores are contiguous.  On the TPU the grid walked 128-pair
+// chunks in order and carried T, `done` and the list count in scratch from
+// one grid step to the next; here those carries are registers of the
+// pixel's thread.
 //
 // Semantics (texgs/kernels/reference.py; pallas_raster.py:138-160):
 //   power = the tile-local quadratic (log-opacity folded in), evaluated
@@ -37,10 +42,12 @@
 // together at the flagship shape; the work per evaluated (pixel, pair) is
 // about 16 + 2F f32 operations, and about 60 more for each M-list slot.
 // The design reads each record once per block and shares it among the
-// tile's 256 pixels, and writes each slot as one 16-byte store.
+// tile's 256 pixels, and writes each slot as one 16-byte store.  Most of
+// the slots are dead: their zeros go out as 512 contiguous bytes a warp.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <cstring>
 
 #include "uvtex_common.cuh"
@@ -57,14 +64,17 @@ __global__ void __launch_bounds__(PIX)
                   const float* __restrict__ uv_rows,
                   const int* __restrict__ pair_gauss,
                   const int* __restrict__ tile_start,
-                  const int* __restrict__ tile_end, Rays rays, int gx, int m,
-                  float* __restrict__ blend, float* __restrict__ t_final,
+                  const int* __restrict__ tile_end,
+                  const int64_t* __restrict__ tile_order, Rays rays, int gx,
+                  int m, float* __restrict__ blend,
+                  float* __restrict__ t_final,
                   float4* __restrict__ mlist, int* __restrict__ n_eval) {
   __shared__ float s_quad[BATCH][8];  // 6 coefficients, log-opacity, pad
   __shared__ float s_feat[BATCH][NF];
   __shared__ float s_uv[BATCH][UV_USED];
+  __shared__ int s_count[PIX];  // each pixel's written slots
 
-  const int tile = blockIdx.x;
+  const int tile = static_cast<int>(tile_order[blockIdx.x]);
   const int tid = threadIdx.x;
   const float tile_x = static_cast<float>((tile % gx) * TILE);
   const float tile_y = static_cast<float>((tile / gx) * TILE);
@@ -126,21 +136,29 @@ __global__ void __launch_bounds__(PIX)
   for (int f = 0; f < NF; ++f) blend[pix * NF + f] = acc[f];
   t_final[pix] = T;
   n_eval[pix] = evals;
-  for (int s = min(count, m); s < m; ++s)
-    list[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the dead slots, zeroed by the block in flat order over the tile's
+  // PIX * m slots; every thread reaches the barrier (the batch loop above
+  // leaves together)
+  s_count[tid] = min(count, m);
+  __syncthreads();
+  float4* tile_list = mlist + static_cast<size_t>(tile) * PIX * m;
+  for (int f = tid; f < PIX * m; f += PIX)
+    if (f % m >= s_count[f / m])
+      tile_list[f] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 template <int NF>
 void launch(const void* table, int tab_cols, const void* uv_rows,
             const void* pair_gauss, const void* tile_start,
-            const void* tile_end, const Rays& rays, int n_tiles, int gx,
-            int m, void* blend, void* t_final, void* mlist, void* n_eval,
-            cudaStream_t stream) {
+            const void* tile_end, const void* tile_order, const Rays& rays,
+            int n_tiles, int gx, int m, void* blend, void* t_final,
+            void* mlist, void* n_eval, cudaStream_t stream) {
   fused_forward<NF><<<n_tiles, PIX, 0, stream>>>(
       static_cast<const float*>(table), tab_cols,
       static_cast<const float*>(uv_rows), static_cast<const int*>(pair_gauss),
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_end),
-      rays, gx, m, static_cast<float*>(blend), static_cast<float*>(t_final),
+      static_cast<const int64_t*>(tile_order), rays, gx, m,
+      static_cast<float*>(blend), static_cast<float*>(t_final),
       static_cast<float4*>(mlist), static_cast<int*>(n_eval));
 }
 
@@ -148,12 +166,14 @@ void launch(const void* table, int tab_cols, const void* uv_rows,
 
 // Blend channels (n_tiles, 256, n_f), T_final (n_tiles, 256), M-lists
 // (n_tiles, 256, m, 4) and evaluated-pair counts (n_tiles, 256) of every
-// tile.  rays9 is host memory [ax, by, c0].  Returns the launch's
-// cudaGetLastError().
+// tile.  tile_order is a permutation of the n_tiles tiles (int64), the
+// order in which the blocks take them.  rays9 is host memory [ax, by, c0].
+// Returns the launch's cudaGetLastError().
 extern "C" int uvtex_fused_forward(const void* table, int tab_cols,
                                    const void* uv_rows, const void* pair_gauss,
                                    const void* tile_start,
-                                   const void* tile_end, const float* rays9,
+                                   const void* tile_end,
+                                   const void* tile_order, const float* rays9,
                                    int n_tiles, int gx, int n_f, int m,
                                    void* blend, void* t_final, void* mlist,
                                    void* n_eval, void* stream) {
@@ -168,7 +188,8 @@ extern "C" int uvtex_fused_forward(const void* table, int tab_cols,
 #define TEXGS_CASE(NF)                                                       \
   case NF:                                                                   \
     launch<NF>(table, tab_cols, uv_rows, pair_gauss, tile_start, tile_end,  \
-               rays, n_tiles, gx, m, blend, t_final, mlist, n_eval, s);     \
+               tile_order, rays, n_tiles, gx, m, blend, t_final, mlist,     \
+               n_eval, s);                                                  \
     break;
   // the stage-3 path blends rgb, depth and normal (F = 7), plus the three
   // no-SH channels when the model has residual SH (F = 10)

@@ -27,8 +27,9 @@ class PairList(NamedTuple):
     n_pairs: torch.Tensor      # () int64 true (uncapped) pair count
     overflowed: torch.Tensor   # () bool: pair_cap exceeded (pairs dropped)
     # (T,) int64 tiles in descending order of tile_counts, the order in
-    # which backward kernels 1' and 2' take them (heaviest_first); set by
-    # with_tile_order where a render will be differentiated
+    # which kernels A, 1' and 2' take them (heaviest_first); set by
+    # with_tile_order on the fused stage-3 path and where a render will be
+    # differentiated
     tile_order: Optional[torch.Tensor] = None
 
 
@@ -96,15 +97,15 @@ def build_pairs(means2d: torch.Tensor, depths: torch.Tensor,
 def heaviest_first(tile_counts: torch.Tensor) -> torch.Tensor:
     """The tiles in descending order of their pair counts, ties by index
     (int64).  A tile's pairs run in one thread block, one after another, so
-    a backward kernel that launches its heaviest tiles first no longer
-    waits on one that started late."""
+    a kernel that launches its heaviest tiles first no longer waits on one
+    that started late."""
     return torch.argsort(tile_counts, descending=True, stable=True)
 
 
 def with_tile_order(pairs: PairList) -> PairList:
     """`pairs` with its tile_order set: computed once per pair list (one
-    sort, its own device launches) and shared by the backward kernels that
-    take the list."""
+    sort, its own device launches) and shared by the kernels that take the
+    list."""
     if pairs.tile_order is not None:
         return pairs
     return pairs._replace(tile_order=heaviest_first(pairs.tile_counts))
@@ -112,8 +113,8 @@ def with_tile_order(pairs: PairList) -> PairList:
 
 def tile_order_arg(name: str, pairs: PairList,
                    device: torch.device) -> torch.Tensor:
-    """The tile order a backward kernel on `device` takes: the pair list's,
-    or heaviest_first computed now for a list that has none."""
+    """The tile order a kernel on `device` takes: the pair list's, or
+    heaviest_first computed now for a list that has none."""
     order = with_tile_order(pairs).tile_order
     if (order.shape != pairs.tile_counts.shape or order.dtype != torch.int64
             or order.device != device or not order.is_contiguous()):

@@ -123,7 +123,10 @@ def tex_term_backward(mlist: torch.Tensor, texture: torch.Tensor,
                       filter_mode: str = "bilinear"):
     """Kernel B': the VJP of the texture term into (d_mlist, d_texture) for
     the (3, H, W) cotangent ``g_img``.  CPU tensors take the plain version
-    (``mlist_tex_term_vjp``); CUDA tensors launch csrc/tex_term_bwd.cu."""
+    (``mlist_tex_term_vjp``); CUDA tensors launch csrc/tex_term_bwd.cu,
+    which adds the texture gradient into texels padded to 16 bytes (one
+    vector atomic a texel) and packs them to (6, R, R, 3) in a second
+    kernel."""
     if filter_mode not in FILTER_MODES:
         raise ValueError(f"unknown filter_mode {filter_mode!r}")
     if mlist.device.type == "cpu":
@@ -138,13 +141,18 @@ def tex_term_backward(mlist: torch.Tensor, texture: torch.Tensor,
                          f"{mlist.device}")
     n_tiles, _, m, _ = mlist.shape
     d_mlist = torch.empty_like(mlist)
-    d_texture = torch.zeros_like(texture)
-    p = _build.ptr
+    d_texture4 = torch.zeros((*texture.shape[:3], 4), device=mlist.device)
+    d_texture = torch.empty_like(texture)
+    p, stream = _build.ptr, _build.stream_of(mlist)
     err = _build.function("tex_term_bwd", "tex_term_backward",
                           [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P])(
         p(mlist), p(texture), texture.shape[1], FILTER_MODES[filter_mode],
-        n_tiles, m, gx, height, width, p(g_img), p(d_mlist), p(d_texture),
-        _build.stream_of(mlist))
+        n_tiles, m, gx, height, width, p(g_img), p(d_mlist), p(d_texture4),
+        stream)
+    if not err:
+        err = _build.function("tex_term_bwd", "tex_term_pack",
+                              [_P, _I, _P, _P])(
+            p(d_texture4), d_texture4.numel() // 4, p(d_texture), stream)
     if err:
         raise RuntimeError(f"tex_term_backward failed: CUDA error {err}")
     if n_tiles > 0:

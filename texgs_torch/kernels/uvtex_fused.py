@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from texgs_torch import _build
-from texgs_torch.kernels.binning import PairList
+from texgs_torch.kernels.binning import PairList, tile_order_arg
 from texgs_torch.kernels.reference import TILE
 from texgs_torch.kernels.tile_raster import (COL_ANCHOR, N_FIXED_F, NEG_INF,
                                              PIX, ROW_LOGOP, TABLE_FIXED,
@@ -146,7 +146,8 @@ def mlist_scan_vjp(table: torch.Tensor, uv_rows: torch.Tensor,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _RAYS = ctypes.POINTER(ctypes.c_float)
-_FWD_ARGS = [_P, _I, _P, _P, _P, _P, _RAYS, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+_FWD_ARGS = [_P, _I, _P, _P, _P, _P, _P, _RAYS, _I, _I, _I, _I,
+             _P, _P, _P, _P, _P]
 _BWD_ARGS = [_P, _I, _P, _P, _P, _P, _RAYS, _I, _I, _I, _I,
              _P, _P, _P, _P, _P, _P, _P, _P, _P]
 
@@ -203,12 +204,15 @@ def fused_pairs_forward(table: torch.Tensor, uv_rows: torch.Tensor,
     """Kernel A without autograd: blend channels, T_final, M-lists and
     evaluated-pair counts of every tile (shapes: ``mlist_scan``).  CPU
     tensors take the plain version; CUDA tensors launch
-    csrc/uvtex_fused.cu."""
+    csrc/uvtex_fused.cu, which takes the tiles in the pair list's
+    ``tile_order`` (heaviest first; computed here for a list without
+    one).  The order changes no output."""
     if table.device.type == "cpu":
         return mlist_scan(table, uv_rows, pairs, rays, gx, m)
     n_f = _check_args("fused_pairs", table, uv_rows, pairs, m)
     n_tiles = pairs.tile_counts.shape[0]
     dev = table.device
+    order = tile_order_arg("fused_pairs", pairs, dev)
     blend = torch.empty((n_tiles, PIX, n_f), device=dev)
     t_final = torch.empty((n_tiles, PIX), device=dev)
     mlist = torch.empty((n_tiles, PIX, m, 4), device=dev)
@@ -216,8 +220,8 @@ def fused_pairs_forward(table: torch.Tensor, uv_rows: torch.Tensor,
     p = _build.ptr
     err = _build.function("uvtex_fused", "uvtex_fused_forward", _FWD_ARGS)(
         p(table), table.shape[1], p(uv_rows), p(pairs.pair_gauss),
-        p(pairs.tile_start), p(pairs.tile_end), rays9(rays), n_tiles, gx,
-        n_f, m, p(blend), p(t_final), p(mlist), p(n_eval),
+        p(pairs.tile_start), p(pairs.tile_end), p(order), rays9(rays),
+        n_tiles, gx, n_f, m, p(blend), p(t_final), p(mlist), p(n_eval),
         _build.stream_of(table))
     if err:
         raise RuntimeError(f"uvtex_fused_forward failed: CUDA error {err}")

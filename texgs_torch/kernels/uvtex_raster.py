@@ -241,6 +241,8 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
     uv_rows, rays = build_uv_rows(tables), ray_constants(camera)
     gx = grid_shape(height, width)[1]
     if path == "fused":
+        # kernel A takes the tiles heaviest first
+        pairs = with_tile_order(pairs)
         tiles_out, t_final, mlist, _ = fused_pairs(table, uv_rows, pairs,
                                                    rays, gx, m)
     else:
