@@ -19,7 +19,11 @@ one card.  Phases, in order; any failure exits non-zero:
                 on the inputs the main path gives it for the first view;
                 kernel A also with its tiles in launch order instead of
                 the pair list's heaviest-first order (the same outputs bit
-                for bit); kernel B also on cube edge and corner directions;
+                for bit); kernel B also on cube edge and corner directions,
+                on M-lists of m = 1, 4 and 33 slots (warps that straddle
+                pixels; pixels of 0, 1, 31 and m live slots), and with NaN
+                in every dead slot's uv, there and on view 0's M-lists (the
+                same output bit for bit);
   5. main    -- 3 orbit views through TextureGaussian3D.visual_step, a
                 change_texture(chessboard, mode=0) retexture, the 3 views
                 again; every kernel's launch count is read over this phase;
@@ -65,6 +69,8 @@ one card.  Phases, in order; any failure exits non-zero:
                 prunes and skips Adam.  Every loss and parameter finite, the
                 loss falling, kernels 1 and 1' once a step;
  12. stage-1 kernels -- kernel 1 against its plain version pixel by pixel,
+                and with its tiles in launch order instead of the pair
+                list's heaviest-first order (the same outputs bit for bit);
                 kernel 1' per column group, on the captured arguments;
  13. stage-1 timings -- the step's median, kernel 1 and 1' times, plain
                 times and bounds, and one step under torch.profiler;
@@ -81,7 +87,8 @@ one card.  Phases, in order; any failure exits non-zero:
  16. two-kernel render -- the model of phase 3 with model_cfg.backend
                 pallas (kernel 1 blends, kernel 2 writes the M-lists):
                 kernels 2 and 1 (F = 10) against their plain versions on
-                view 0's arguments; the 3 views, the chessboard retexture and
+                view 0's arguments, kernel 1 also in both tile orders (bit
+                for bit); the 3 views, the chessboard retexture and
                 the 3 views again through visual_step, each image held
                 against the fused path's of phase 5, with kernels 1, 2 and B
                 launched once a view and A never;
@@ -468,6 +475,35 @@ def edge_corner_mlist(n_tiles, m, device, torch, seed=5):
     w = rng.uniform(0.0, 0.2, size=(n, 1)) * (rng.uniform(size=(n, 1)) < 0.8)
     ml = np.concatenate([w, d], axis=1).astype(np.float32)
     return torch.as_tensor(ml, device=device).reshape(n_tiles, 256, m, 4)
+
+
+def live_count_mlist(n_tiles, m, device, torch, seed=7):
+    """edge_corner_mlist's M-lists whose pixels hold 0, 1, 31 or m live
+    slots (capped at m; drawn per pixel), a prefix of each list as kernels
+    A and 2 write them.  Returns (M-lists, the (n_tiles, 256, m) bool live
+    mask)."""
+    ml = edge_corner_mlist(n_tiles, m, device, torch, seed)
+    rng = np.random.default_rng(seed + 100)
+    counts = np.minimum(np.array([0, 1, 31, m])[
+        rng.integers(0, 4, size=(n_tiles, 256, 1))], m)
+    live = torch.as_tensor(np.arange(m) < counts, device=device)
+    w = torch.as_tensor(rng.uniform(0.01, 0.2, size=(n_tiles, 256, m)),
+                        dtype=torch.float32, device=device)
+    ml[..., 0] = torch.where(live, w, 0.0)
+    return ml, live
+
+
+def check_dead_nan(torch, name, ml, live, got, call):
+    """Kernel B on `ml` with NaN in every dead slot's uv must give `got`,
+    its output on `ml`, bit for bit: a dead slot is selected away."""
+    nan = ml.clone()
+    nan[..., 1:][~live] = float("nan")
+    again = call(nan)
+    same = bool(torch.isfinite(again).all()) and torch.equal(again, got)
+    log(f"  {name}, NaN in the uv of all {int((~live).sum())} dead slots: "
+        f"finite and bit for bit the clean output: {same}")
+    if not same:
+        fail(f"{name}: a dead slot's uv reached kernel B's sum")
 
 
 def profile_device(torch, what, fn, median, top=12):
@@ -1002,6 +1038,26 @@ def check_kernel_1(torch, got, want):
     return max(errs.values())
 
 
+def check_tile_orders(torch, table, pairs, gx, got):
+    """Kernel 1 with its tiles heaviest first and in launch order must give
+    `got`, its output on `pairs`, bit for bit."""
+    from texgs_torch.kernels import binning
+    from texgs_torch.kernels import raster as kr
+
+    n_tiles = pairs.tile_counts.numel()
+    for name, order in (
+            ("heaviest first", binning.with_tile_order(pairs).tile_order),
+            ("launch order", torch.arange(n_tiles, device=table.device))):
+        out = kr.raster_pairs_forward(table, pairs._replace(tile_order=order),
+                                      gx)
+        same = [torch.equal(x, y) for x, y in zip(out, got)]
+        log(f"  1 with its tiles {name}: blend, T_final, n_eval bit for bit: "
+            f"{same}")
+        if not all(same):
+            fail("kernel 1's outputs depend on the order it takes the tiles "
+                 "in")
+
+
 def spiral_ground_truth(torch, device, pcd, cams):
     """Ground-truth views of the cloud at opacity logit 4.0 and SH degree 0
     (scripts/make_synthetic_dataset.py:209-265), rendered by the port:
@@ -1149,6 +1205,10 @@ def stage1_phases(torch, device, work_dir):
         got_1 = kr.raster_pairs_forward(table, pairs, gx)
         want_1 = kr.raster_scan(table, pairs, gx)
         err_1 = check_kernel_1(torch, got_1, want_1)
+        if pairs.tile_order is None:
+            fail("the stage-1 step handed kernel 1 a pair list without its "
+                 "tile order")
+        check_tile_orders(torch, table, pairs, gx, got_1)
         fwd_sub = kr.raster_pairs_forward(table, sub, gx)
         got_1b = kr.raster_pairs_backward(table, sub, gx, *fwd_sub[:2], *cots)
         torch.cuda.reset_peak_memory_stats()
@@ -1435,6 +1495,10 @@ def two_kernel_phases(torch, device, sd0, cams, views, retextured, chess,
     with torch.no_grad():
         got_1 = kr.raster_pairs_forward(table, pairs, gx)
         err_1 = check_kernel_1(torch, got_1, kr.raster_scan(table, pairs, gx))
+        if pairs.tile_order is None:
+            fail("the two-kernel render handed kernel 1 a pair list without "
+                 "its tile order")
+        check_tile_orders(torch, table, pairs, gx, got_1)
         got_2 = km.mlist_pairs_forward(*m_args)
         err_2 = check_kernel_2(torch, got_2, km.mlist_only_scan(*m_args))
 
@@ -1843,6 +1907,9 @@ def main() -> int:
         want_b = mlist_tex_term(*b_args)
         err_b = check_close(torch, "B texture term (main-path M-lists)",
                             got_b, want_b, atol=2e-5, rtol=1e-4)
+        check_dead_nan(torch, "B (main-path M-lists)", mlist,
+                       mlist[..., 0] != 0, got_b,
+                       lambda ml: tex_term(ml, *b_args[1:]))
         edge_ml = edge_corner_mlist(16, m, device, torch)
         small_tex = torch.as_tensor(np.random.default_rng(6).uniform(
             -1.5, 1.5, size=(6, 16, 16, 3)), dtype=torch.float32, device=device)
@@ -1853,6 +1920,18 @@ def main() -> int:
                     tex_term(edge_ml, tex, 64, 64, mode),
                     mlist_tex_term(edge_ml, tex, 64, 64, mode),
                     atol=2e-5, rtol=1e-4))
+        # one thread a slot: at m = 1, 4 and 33 a warp straddles pixels
+        for sm in (1, 4, 33):
+            ml, live = live_count_mlist(12, sm, device, torch, seed=sm)
+            for mode in ("bilinear", "nearest", "bilinear_clamp"):
+                got = tex_term(ml, small_tex, 40, 56, mode)
+                err_b = max(err_b, check_close(
+                    torch, f"B m = {sm} (0, 1, 31, m live slots), {mode}",
+                    got, mlist_tex_term(ml, small_tex, 40, 56, mode),
+                    atol=2e-5, rtol=1e-4))
+                check_dead_nan(torch, f"B m = {sm}, {mode}", ml, live, got,
+                               lambda x, mode=mode: tex_term(
+                                   x, small_tex, 40, 56, mode))
         # the end-to-end image of view 0 with the plain versions swapped in
         plain_image = plain_render(model, cams[0])["render"]
 

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""A/B timing of kernels B' (texgs_torch/csrc/tex_term_bwd.cu) and A
-(texgs_torch/csrc/uvtex_fused.cu) against variants of themselves and
-against another tree's sources, on an NVIDIA H100.
+"""A/B timing of kernels B (texgs_torch/csrc/tex_term.cu), B'
+(texgs_torch/csrc/tex_term_bwd.cu) and A (texgs_torch/csrc/uvtex_fused.cu)
+against variants of themselves and against another tree's sources, on an
+NVIDIA H100.
 
 Run from the repository root on a machine with the card:
 
     python3 scripts/ab_tex_term.py [--parent DIR] [--no-time]
+                                   [--kernels tex_term,tex_term_bwd,...]
 
 DIR is the root of another checkout of the repository (the parent commit
 unpacked with `git archive` into the git-ignored build/, say); its
@@ -13,9 +15,9 @@ texgs_torch/csrc sources are built as the variant "parent" of each kernel.
 
 Builds chip_smoke.py's flagship stage-3 model (100,000 Gaussians, 800x600,
 m = 32, F = 10; the model gives no F = 7 call) and captures the arguments
-the main path hands the kernels: A's from the render of view 0 and from
-one training step of configs/prod_texture.yaml's joint phase, B''s from
-that step.  It counts, with plain torch ops on the card, what B''s texel
+the main path hands the kernels: A's and B's from the render of view 0 and
+from one training step of configs/prod_texture.yaml's joint phase, B''s
+from that step.  It counts, with plain torch ops on the card, what B''s texel
 scatter issues: the scalar atomics of one thread per pixel (3 a live slot's
 tap texel), the (warp, tap, texel) groups a warp merge (the variant
 warp_merge) would add instead, the distinct (warp, texel) and
@@ -24,15 +26,16 @@ with another of its slots, and the shuffle rounds the merge takes; and A's
 dead slots.  Each variant in VARIANTS is a kernel's
 source with a few text substitutions, compiled with texgs_torch._build's
 flags (ptxas reports printed: registers, shared memory, spills) and checked
-against the committed source's output: B' at chip_smoke.py's tolerances,
-A bit for bit.  With --no-time it stops there.  Otherwise each capture's
+against the committed source's output: B at 2e-5 + 1e-4 |x|, B' at
+chip_smoke.py's tolerances, A bit for bit.  With --no-time it stops there.  Otherwise each capture's
 variants are timed in turns, first to last and last to first ("parent"
 first), each turn the median of 5 queued CUDA-event timings of the wrapper
 (chip_smoke.median_ms), and once under torch.profiler (the kernel's own
 device time, and the wrapper's other device work); then the render of view
 0 and the training step are timed with A's tiles heaviest first (the
-committed tree) and in launch order without the sort, in turns.  Needs one
-card and imports nothing of JAX.
+committed tree) and in launch order without the sort, in turns.
+--kernels limits the run to the named sources (all three by default).
+Needs one card and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -149,7 +152,108 @@ UNCHECKED = {"no_scatter"}
 # variants called as the parent's C entry is: into a zeroed (6, R, R, 3)
 # gradient, with no pack (call_unpadded)
 UNPADDED = {"parent", "scalar", "v2_split"}
+# Kernel B's variants.  The committed design runs one thread a slot; the
+# variants replace its kernel and launch (B_KERNEL: the source from the
+# kernel's comment to the end of its namespace) or its texel read.
+_B_SRC = (ROOT / "texgs_torch" / "csrc" / "tex_term.cu").read_text()
+B_KERNEL = _B_SRC[_B_SRC.index("// Block b holds pixels"):
+                  _B_SRC.index("}  // namespace")]
+B_LAUNCH = _B_SRC[_B_SRC.index("void launch("):_B_SRC.index("}  // namespace")]
+# (b) one thread a pixel, as the parent design, over the tile's M-lists
+# staged into shared memory CH slots at a time in coalesced chunks: a warp
+# loads 4 pixels' 8 slots, 512 contiguous bytes (36 KB staged, rows padded
+# to 9 slots)
+PER_PIXEL_STAGED = [(B_KERNEL, """constexpr int CH = 8;
+
+__global__ void __launch_bounds__(PIX)
+    tex_term_forward_staged(const float4* __restrict__ mlist,
+                            const float* __restrict__ tex, int res,
+                            float lim, int mode, int m, int gx, int height,
+                            int width, float* __restrict__ out) {
+  __shared__ float4 s_ml[PIX][CH + 1];
+  const int tile = blockIdx.x, tid = threadIdx.x;
+  const float4* tl = mlist + static_cast<size_t>(tile) * PIX * m;
+  float r = 0.f, g = 0.f, b = 0.f;
+  for (int c0 = 0; c0 < m; c0 += CH) {
+    const int n = min(CH, m - c0);
+    __syncthreads();
+    for (int i = tid; i < PIX * n; i += PIX)
+      s_ml[i / n][i % n] = tl[static_cast<size_t>(i / n) * m + c0 + i % n];
+    __syncthreads();
+    for (int j = 0; j < n; ++j) {
+      const float4 e = s_ml[tid][j];
+      if (e.x == 0.f) continue;
+      const float3 t = sample_cube(tex, res, lim, mode, e.y, e.z, e.w);
+      r += e.x * t.x;
+      g += e.x * t.y;
+      b += e.x * t.z;
+    }
+  }
+  const int y = (tile / gx) * TILE + tid / TILE;
+  const int x = (tile % gx) * TILE + tid % TILE;
+  if (y < height && x < width) {
+    const size_t plane = static_cast<size_t>(height) * width;
+    const size_t at = static_cast<size_t>(y) * width + x;
+    out[at] = C0 * r;
+    out[plane + at] = C0 * g;
+    out[2 * plane + at] = C0 * b;
+  }
+}
+
+void launch(const float4* mlist, const float* tex, int res, float lim,
+            int mode, int n_tiles, int m, int gx, int height, int width,
+            float* out, cudaStream_t stream) {
+  tex_term_forward_staged<<<n_tiles, PIX, 0, stream>>>(
+      mlist, tex, res, lim, mode, m, gx, height, width, out);
+}
+
+""")]
+# (c) the committed design reading each texel as one float4 from a copy of
+# the cubemap padded to (6, R, R, 4), made by a first kernel in every call
+# (the texture changes every training step); the copy's buffer is kept
+# between calls, allocated at the first
+PADDED_TEXELS = [
+    ("""  const float* p = tex + static_cast<size_t>(at) * 3;
+  return make_float3(__ldg(p), __ldg(p + 1), __ldg(p + 2));""",
+     """  const float4 v = __ldg(reinterpret_cast<const float4*>(tex) + at);
+  return make_float3(v.x, v.y, v.z);"""),
+    (B_LAUNCH, """__global__ void __launch_bounds__(BLOCK)
+    pad_texels(const float* __restrict__ tex, int n, float4* __restrict__ out) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i < n) out[i] = make_float4(tex[3 * i], tex[3 * i + 1], tex[3 * i + 2],
+                                  0.f);
+}
+
+void launch(const float4* mlist, const float* tex, int res, float lim,
+            int mode, int n_tiles, int m, int gx, int height, int width,
+            float* out, cudaStream_t stream) {
+  static float4* padded = nullptr;
+  static int cap = 0;
+  const int n = 6 * res * res;
+  if (n > cap) {
+    cudaFree(padded);
+    cudaMalloc(&padded, static_cast<size_t>(n) * sizeof(float4));
+    cap = n;
+  }
+  pad_texels<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(tex, n, padded);
+  const int n_pix = n_tiles * PIX;
+  const int ppb = max(1, BLOCK / m);
+  tex_term_forward<<<(n_pix + ppb - 1) / ppb, BLOCK, 0, stream>>>(
+      mlist, reinterpret_cast<const float*>(padded), res, lim, mode, m, ppb,
+      n_pix, gx, height, width, out);
+}
+
+""")]
+# the committed kernel asked to fit 4 (no bound: 58 registers), 5 or 8
+# blocks of 256 threads an SM in place of its 6 (at most 40 registers)
+B_BOUNDS = "__launch_bounds__(BLOCK, 6)\n    tex_term_forward("
 VARIANTS = {
+    "tex_term": {"committed": [], "per_pixel_staged": PER_PIXEL_STAGED,
+                 "padded_texels": PADDED_TEXELS,
+                 **{f"blocks_{n}": [(B_BOUNDS, "__launch_bounds__(BLOCK"
+                                     + (f", {n}" if n != 4 else "")
+                                     + ")\n    tex_term_forward(")]
+                    for n in (4, 5, 8)}},
     "tex_term_bwd": {"committed": [], "warp_merge": WARP_MERGE,
                      "shared_sums": SHARED_SUMS, "scalar": SCALAR,
                      "v2_split": V2_SPLIT, "no_scatter": NO_SCATTER},
@@ -158,13 +262,15 @@ VARIANTS = {
 # a parent whose kernel A takes no tile order: its C entry gains an
 # argument it ignores, so that this tree's wrapper calls it
 PARENT = {
+    "tex_term": [],
     "tex_term_bwd": [],
     "uvtex_fused": [("const void* tile_end, const float* rays9,",
                      "const void* tile_end, const void*, "
                      "const float* rays9,")],
 }
 # the kernel function each library launches, as torch.profiler names it
-KERNEL_NAMES = {"tex_term_bwd": "tex_term_backward",
+KERNEL_NAMES = {"tex_term": "tex_term_forward",
+                "tex_term_bwd": "tex_term_backward",
                 "uvtex_fused": "fused_forward"}
 
 
@@ -282,8 +388,8 @@ def b_scatter_counts(torch, mlist, texture, g_img, height, width):
 
 
 def captures(torch, cs, device):
-    """(view 0's A arguments, the step's A arguments, the step's B'
-    arguments, the model, its cameras, its step function)."""
+    """{label: view 0's and the step's A and B arguments, the step's B'
+    arguments}, the model, its cameras, its step function."""
     from texgs_torch.data.synthetic import orbit_cameras
     from texgs_torch.kernels import tex_term as kt
     from texgs_torch.kernels import uvtex_fused as kf
@@ -293,17 +399,19 @@ def captures(torch, cs, device):
     cams = orbit_cameras(cs.N_VIEWS, radius=3.5, width=cs.WIDTH,
                          height=cs.HEIGHT)
     with torch.no_grad():
-        a_view, _ = cs.main_path_kernel_args(model, cams[0])
+        a_view, b_view = cs.main_path_kernel_args(model, cams[0])
         views = [model.visual_step(0, 1, c) for c in cams]
     model.change_texture(faces_to_cross(chessboard_cubemap(
         cs.TEX_RES // 16, 16, device=device)), mode=0)
     step = cs.stage3_stepper(model, cams, views)
     seen = {}
     with cs.recording(kf, "fused_pairs", seen), \
+            cs.recording(kt, "tex_term", seen), \
             cs.recording(kt, "tex_term_backward", seen):
         step(cs.FIRST_ITER)
-    return (a_view, seen["fused_pairs"], seen["tex_term_backward"], model,
-            cams, step)
+    return ({"A (view 0)": a_view, "A (step)": seen["fused_pairs"],
+             "B (view 0)": b_view, "B (step)": seen["tex_term"],
+             "B' (step)": seen["tex_term_backward"]}, model, cams, step)
 
 
 def call_unpadded(torch, lib, args):
@@ -375,7 +483,13 @@ def main() -> int:
                         "kernel sources are built as the variant 'parent'")
     parser.add_argument("--no-time", action="store_true",
                         help="count, build and check; time nothing")
+    parser.add_argument("--kernels", default=",".join(VARIANTS),
+                        help="the sources to build, check and time, "
+                        "comma-separated (default: all)")
     opts = parser.parse_args()
+    sources = opts.kernels.split(",")
+    if not set(sources) <= set(VARIANTS):
+        parser.error(f"--kernels: choose from {', '.join(VARIANTS)}")
     if not torch.cuda.is_available():
         print("ab_tex_term: needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -395,23 +509,37 @@ def main() -> int:
     print(f"[device] {card}", flush=True)
     out_dir = ROOT / "build" / "texgs_torch" / "ab_tex_term"
     libs = {}
-    for source, variants in VARIANTS.items():
-        variants = dict(variants)
+    for source in sources:
+        variants = dict(VARIANTS[source])
         csrc = {}
         if opts.parent:
             variants = {"parent": PARENT[source], **variants}
             csrc["parent"] = Path(opts.parent) / "texgs_torch" / "csrc"
         libs[source] = build_variants(source, variants, out_dir, csrc)
 
-    a_view, a_step, b_args, model, cams, step = captures(torch, cs, device)
-    mlist, texture, g_img, height, width, mode = b_args
-    with torch.no_grad():
-        counts = b_scatter_counts(torch, mlist, texture, g_img, height, width)
-    print(f"[count] B' on the step-{cs.FIRST_ITER} arguments ({mode}, "
-          f"{texture.shape[1]}^2 cubemap, m = {mlist.shape[2]}):", flush=True)
-    for k, v in counts.items():
-        print(f"  {k}: {v}", flush=True)
-    for label, args in (("view 0", a_view), ("step", a_step)):
+    args_of, model, cams, step = captures(torch, cs, device)
+    mlist, texture, g_img, height, width, mode = args_of["B' (step)"]
+    if "tex_term_bwd" in sources:
+        with torch.no_grad():
+            counts = b_scatter_counts(torch, mlist, texture, g_img, height,
+                                      width)
+        print(f"[count] B' on the step-{cs.FIRST_ITER} arguments ({mode}, "
+              f"{texture.shape[1]}^2 cubemap, m = {mlist.shape[2]}):",
+              flush=True)
+        for k, v in counts.items():
+            print(f"  {k}: {v}", flush=True)
+    for label in ("view 0", "step"):
+        if "tex_term" in sources:
+            w = args_of[f"B ({label})"][0][..., 0]
+            live = (w != 0).sum(-1)
+            mean = live[live > 0].float().mean().item()
+            print(f"[count] B, {label}: {int(live.sum())} live of {w.numel()} "
+                  f"slots; pixels with 0 live slots {int((live == 0).sum())}, "
+                  f"mean over the others {mean:.2f}, most {int(live.max())}",
+                  flush=True)
+        if "uvtex_fused" not in sources:
+            continue
+        args = args_of[f"A ({label})"]
         with torch.no_grad():
             out = kf.fused_pairs_forward(*args)
         w = out[2][..., 0]
@@ -424,10 +552,12 @@ def main() -> int:
               f"of dead slots; tile order set: {pairs.tile_order is not None}",
               flush=True)
 
-    tests = {"B' (step)": ("tex_term_bwd", b_args),
-             "A (view 0)": ("uvtex_fused", a_view),
-             "A (step)": ("uvtex_fused", a_step)}
-    wrappers = {"tex_term_bwd": kt.tex_term_backward,
+    kernel_of = {"B": "tex_term", "B'": "tex_term_bwd", "A": "uvtex_fused"}
+    tests = {label: (kernel_of[label.split()[0]], args)
+             for label, args in args_of.items()
+             if kernel_of[label.split()[0]] in sources}
+    wrappers = {"tex_term": kt.tex_term_forward,
+                "tex_term_bwd": kt.tex_term_backward,
                 "uvtex_fused": kf.fused_pairs_forward}
     for label, (source, args) in tests.items():
         def call(name, source=source, args=args):
@@ -442,7 +572,10 @@ def main() -> int:
             for name in names:
                 if name == "committed" or name in UNCHECKED:
                     continue
-                if source == "tex_term_bwd":
+                if source == "tex_term":
+                    cs.check_close(torch, f"{label} {name} vs committed",
+                                   call(name), want, atol=2e-5, rtol=1e-4)
+                elif source == "tex_term_bwd":
                     check_b(torch, cs, call(name), want, mlist,
                             f"{label} {name} vs committed")
                 else:
@@ -467,8 +600,8 @@ def main() -> int:
                       f"{rest or 'none'}", flush=True)
         _build._loaded[source] = libs[source]["committed"]
 
-    if not opts.no_time:
-        counts_t = a_view[2].tile_counts
+    if not opts.no_time and "uvtex_fused" in sources:
+        counts_t = args_of["A (view 0)"][2].tile_counts
         sort_ms = cs.median_ms(torch, lambda: binning.heaviest_first(counts_t),
                                queued=True)
         sort_n, _ = cs.device_launches(

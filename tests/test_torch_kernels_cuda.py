@@ -237,6 +237,53 @@ def test_tex_term_kernel_matches_plain(cuda_device, mode, edges, res):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
 
 
+# live slots a pixel of live_count_mlist, capped at m
+LIVE_COUNTS = (0, 1, 31)
+
+
+def live_count_mlist(n_tiles, m, seed=0, edges=False):
+    """(n_tiles, 256, m, 4) M-lists whose pixels hold 0, 1, 31 or m live
+    slots (capped at m; drawn per pixel), a prefix of each list as kernels
+    A and 2 write them; the dead slots keep random_mlist's directions with
+    w = 0.  Returns (M-lists, (n_tiles, 256, m) bool live mask)."""
+    ml = random_mlist(n_tiles, m, seed=seed, edges=edges)
+    rng = np.random.default_rng(seed + 100)
+    counts = np.array(LIVE_COUNTS + (m,))[
+        rng.integers(0, len(LIVE_COUNTS) + 1, size=(n_tiles, 256, 1))]
+    live = torch.as_tensor(np.arange(m) < np.minimum(counts, m))
+    w = torch.as_tensor(rng.uniform(0.01, 0.3, size=(n_tiles, 256, m)),
+                        dtype=torch.float32)
+    ml[..., 0] = torch.where(live, w, 0.0)
+    return ml, live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bilinear", "nearest", "bilinear_clamp"])
+@pytest.mark.parametrize("edges", [False, True], ids=["random", "edges"])
+@pytest.mark.parametrize("m", [1, 4, 32, 33, 300])
+def test_tex_term_kernel_where_warps_straddle_pixels(cuda_device, m, edges,
+                                                      mode):
+    """Kernel B runs one thread per slot and sums a pixel's slots over its
+    lanes: at m = 1, 4 and 33 a warp holds slots of several pixels, at 33
+    a pixel spans two warps, at 300 two rounds of the block.  Pixels hold
+    0, 1, 31 or m live slots, the 40 x 56 frame has partial edge tiles, and
+    NaN written into every dead slot's uv changes no output bit."""
+    ml, live = live_count_mlist(12, m, seed=m, edges=edges)
+    ml, live = ml.to(cuda_device), live.to(cuda_device)
+    tex = random_texture(16).to(cuda_device)
+    before = tex_term.launches
+    got = tex_term(ml, tex, 40, 56, mode)
+    torch.cuda.synchronize()
+    assert tex_term.launches == before + 1
+    torch.testing.assert_close(got, mlist_tex_term(ml, tex, 40, 56, mode),
+                               atol=2e-5, rtol=1e-4)
+    nan = ml.clone()
+    nan[..., 1:][~live] = float("nan")
+    got_nan = tex_term(nan, tex, 40, 56, mode)
+    assert bool(torch.isfinite(got_nan).all())
+    assert torch.equal(got_nan, got)
+
+
 def kernel_a_cotangents(outputs, seed=2):
     """Seeded random cotangents of kernel A's blend, T_final and M-lists,
     on their device."""
@@ -855,7 +902,8 @@ def test_heaviest_first_tile_order():
 @pytest.mark.parametrize("grad", [True, False], ids=["train", "render"])
 def test_tile_order_set_where_a_render_is_differentiated(monkeypatch, grad):
     """rasterize_tiled hands kernel 1 a pair list with its tile order where
-    the blend will be differentiated, and sorts nothing for a render."""
+    the blend will be differentiated, and in a render too (kernel 1 takes
+    the tiles heaviest first)."""
     from texgs_torch.kernels import raster as kr
 
     pcd = textured_sphere_point_cloud(300, seed=0)
@@ -873,11 +921,8 @@ def test_tile_order_set_where_a_render_is_differentiated(monkeypatch, grad):
                         lambda t, p, gx: seen.append(p) or raster(t, p, gx))
     tile_raster.rasterize_tiled(proj, 32, 48, torch.zeros(3))
     (pairs,) = seen
-    if grad:
-        assert torch.equal(pairs.tile_order,
-                           binning.heaviest_first(pairs.tile_counts))
-    else:
-        assert pairs.tile_order is None
+    assert torch.equal(pairs.tile_order,
+                       binning.heaviest_first(pairs.tile_counts))
 
 
 @pytest.mark.parametrize("grad", [True, False], ids=["train", "render"])
@@ -912,6 +957,41 @@ def test_tile_order_set_on_the_fused_path(monkeypatch, grad):
                        binning.heaviest_first(pairs.tile_counts))
 
 
+@pytest.mark.parametrize("grad", [True, False], ids=["train", "render"])
+def test_tile_order_set_on_the_two_kernel_path(monkeypatch, grad):
+    """rasterize_uvtex's two-kernel path (``backend="pallas"``) hands
+    kernels 1 and 2 one pair list with its tile order, in a render and
+    where the render is differentiated."""
+    from texgs_torch.kernels import raster as kr
+    from texgs_torch.kernels import uvtex_mlist as km
+
+    n = 300
+    pcd = textured_sphere_point_cloud(n, seed=0)
+    st = init_from_pcd(pcd.points, pcd.colors, 1, device="cpu")
+    cam = orbit_cameras(1, radius=3.5, width=48, height=32)[0]
+    xyz = st.xyz.clone().requires_grad_(grad)
+    scaling, rot = torch.exp(st.scaling), st.rotation
+    campos = torch.as_tensor(cam.camera_center)
+    proj = project.project_gaussians(
+        xyz, scaling, rot, torch.full((n, 1), 0.6), torch.zeros_like(st.xyz),
+        torch.as_tensor(cam.world_view), torch.as_tensor(cam.full_proj),
+        campos, 48, 32, cam.tanfovx, cam.tanfovy)
+    uvs = xyz / torch.linalg.norm(xyz, dim=-1, keepdim=True)
+    seen = []
+    raster, mlist = kr.raster_pairs, km.mlist_pairs
+    monkeypatch.setattr(kr, "raster_pairs",
+                        lambda t, p, gx: seen.append(p) or raster(t, p, gx))
+    monkeypatch.setattr(km, "mlist_pairs",
+                        lambda *a: seen.append(a[2]) or mlist(*a))
+    uvtex_raster.rasterize_uvtex(
+        proj, scaling, rot, xyz, uvs, torch.zeros((n, 9)),
+        random_texture(8), torch.zeros((n, 15, 3)), 1, cam, torch.zeros(3),
+        m=8, backend="pallas")
+    assert len(seen) == 2 and seen[0] is seen[1]
+    assert torch.equal(seen[0].tile_order,
+                       binning.heaviest_first(seen[0].tile_counts))
+
+
 @pytest.mark.cuda
 def test_raster_rejects_channels_off_the_path(cuda_device):
     """Kernel 1 is built for F = 7 (stages 1 and 2) and F = 10 (the
@@ -929,12 +1009,12 @@ def test_raster_rejects_channels_off_the_path(cuda_device):
     t_fin = torch.empty((n_tiles, 256), device=cuda_device)
     n_eval = torch.empty((n_tiles, 256), dtype=torch.int32, device=cuda_device)
     p = _build.ptr
+    order = binning.heaviest_first(pairs.tile_counts)
     err = _build.function("raster", "raster_forward", kr._FWD_ARGS)(
         p(wide), wide.shape[1], p(pairs.pair_gauss), p(pairs.tile_start),
-        p(pairs.tile_end), n_tiles, gx, 8, p(out), p(t_fin), p(n_eval),
-        _build.stream_of(wide))
+        p(pairs.tile_end), p(order), n_tiles, gx, 8, p(out), p(t_fin),
+        p(n_eval), _build.stream_of(wide))
     assert err == 1  # cudaErrorInvalidValue
-    order = binning.heaviest_first(pairs.tile_counts)
     err = _build.function("raster_bwd", "raster_backward", kr._BWD_ARGS)(
         p(wide), wide.shape[1], p(pairs.pair_gauss), p(pairs.tile_start),
         p(pairs.tile_end), p(order), n_tiles, gx, 8, p(out), p(t_fin), p(out),
@@ -957,6 +1037,88 @@ def test_raster_kernel_matches_plain(cuda_device, size, n_extra):
     for a, b in zip(got[:2], want[:2]):
         assert (a - b).abs().max().item() <= 0.05
     assert int(got[2].sum()) > 0
+
+
+def assert_raster_orders_agree(table, pairs, gx):
+    """Kernel 1 with the tiles heaviest first and in launch order: the
+    same outputs bit for bit, within _raster_pixels_off's allowance of the
+    plain version.  Returns the outputs."""
+    heavy = binning.with_tile_order(pairs)
+    launch = pairs._replace(tile_order=torch.arange(
+        pairs.tile_counts.numel(), device=table.device))
+    if pairs.tile_counts.numel() > 1:
+        assert not torch.equal(heavy.tile_order, launch.tile_order)
+    got = raster_pairs(table, heavy, gx)
+    again = raster_pairs(table, launch, gx)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = raster_scan(table, pairs, gx)
+    assert _raster_pixels_off(got, want) <= 4
+    for a, b in zip(got[:2], want[:2]):
+        assert (a - b).abs().max().item() <= 0.05
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", list(A_EDGE_COUNTS))
+@pytest.mark.parametrize("n_extra", [0, 3], ids=["F7", "F10"])
+def test_raster_kernel_at_batch_edges(cuda_device, n_extra, order):
+    """Kernel 1 on tiles of A_EDGE_COUNTS pairs (0, 1, 255, 256, 257, 897
+    among them), heaviest first and in launch order."""
+    counts = A_EDGE_COUNTS[order]
+    table, _, pairs, _, gx, _ = _to(cuda_device, edge_count_inputs(
+        counts, n_extra=n_extra))
+    got = assert_raster_orders_agree(table, pairs, gx)
+    assert got[2].amax(-1).tolist() == list(counts)
+
+
+# the pair index at which every pixel of a tile stops, one tile each:
+# each position of the look-ahead groups of 2, 4 and 8 pairs, and the
+# pairs around the batch boundary at 256
+STOP_AT = (13, 14, 15, 16, 17, 18, 19, 20, 21, 254, 255, 256, 257)
+
+
+def stop_at_inputs(n_extra, stop_at=STOP_AT):
+    """Flat layers, one tile per entry of stop_at: tile t holds
+    stop_at[t] - 13 transparent pairs (alpha 0, evaluated), then 14 pairs
+    of alpha 0.5, the 14th of which takes T below 1e-4 and stops every
+    pixel (after 13, T = 0.5^13 > 1e-4), then 3 pairs with NaN channels
+    that no pixel reaches.  Returns (table, pairs, gx = len(stop_at))."""
+    table = torch.zeros((3, 16 + n_extra))
+    logop = float(np.log(0.5))
+    table[:, 5] = table[:, 6] = logop   # flat exponent: power = log-opacity
+    table[0, 5] = -30.0                 # transparent: alpha = 0
+    table[:, 7:14] = torch.linspace(0.1, 0.7, 7)
+    table[:, 16:] = torch.linspace(-0.5, 0.5, n_extra)
+    table[2, 7:14] = table[2, 16:] = float("nan")
+    lists = [[0] * (k - 13) + [1] * 14 + [2] * 3 for k in stop_at]
+    counts = torch.tensor([len(x) for x in lists], dtype=torch.int32)
+    end = torch.cumsum(counts, 0).to(torch.int32)
+    pairs = binning.PairList(
+        pair_gauss=torch.tensor(sum(lists, []), dtype=torch.int32),
+        pair_tile=torch.repeat_interleave(
+            torch.arange(len(lists), dtype=torch.int32), counts),
+        tile_start=end - counts, tile_end=end, tile_counts=counts,
+        n_pairs=end[-1].to(torch.int64), overflowed=torch.tensor(False))
+    return table, pairs, len(stop_at)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_extra", [0, 3], ids=["F7", "F10"])
+def test_raster_kernel_stops_at_look_ahead_group_edges(cuda_device, n_extra):
+    """Kernel 1 computes a group of alphas ahead of the T chain: a stop on
+    the first, a middle or the last pair of a group (and around the batch
+    boundary) counts the stopping pair in n_eval, composites nothing from
+    it on, and no alpha computed past it reaches an output."""
+    table, pairs, gx = _to1(cuda_device, stop_at_inputs(n_extra))
+    blend, t_final, n_eval = assert_raster_orders_agree(table, pairs, gx)
+    want = torch.tensor(STOP_AT, device=cuda_device)[:, None] + 1
+    assert torch.equal(n_eval, want.expand_as(n_eval).to(torch.int32))
+    assert bool(torch.isfinite(blend).all())
+    torch.testing.assert_close(t_final, torch.full_like(t_final, 0.5 ** 13),
+                               rtol=1e-5, atol=0)
+    torch.testing.assert_close(blend[0], blend[-1], rtol=0, atol=0)
 
 
 def assert_columns_close(groups, max_off=4):

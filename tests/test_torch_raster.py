@@ -3,7 +3,8 @@
 
 The JAX side runs as tests/test_pallas_raster.py runs it: its scan twin
 (``backend="scan"``) and the Pallas kernel in interpret mode on the CPU
-(``backend="pallas"``), on that file's scenes.  Both packages get the same
+(``backend="pallas"``), on that file's scenes, and on projected Gaussians
+whose tiles hold 1, 257 and 900 pairs.  Both packages get the same
 numpy-seeded Gaussians.  Tolerances are that file's: forward atol 3e-5,
 gradients atol 5e-4 / rtol 1e-3.
 """
@@ -104,6 +105,74 @@ def test_raster_scan_matches_jax_tiles():
     n_eval = got[2].numpy()
     assert n_eval.min() >= 0 and n_eval.max() <= int(pairs.tile_counts.max())
     assert (n_eval.sum(-1) > 0).any()
+
+
+# tiles of the 48 x 48 frame (3 x 3 tiles) and the pairs each holds
+COUNTED_TILES = {"diagonal": {0: 1, 4: 257, 8: 900},
+                 "edge_row": {2: 900, 5: 1, 6: 257}}
+
+
+def counted_scene(tiles, size=48, seed=7):
+    """texgs ProjectedGaussians of a size x size frame in which tile t
+    holds tiles[t] pairs: each Gaussian's mean lies 5..11 pixels into its
+    tile and its radius is 3, so it covers that tile alone; random
+    conics (sigma 1-4 pixels), depths, colours, opacities and normals."""
+    from texgs.kernels.project import ProjectedGaussians
+
+    rng = np.random.default_rng(seed)
+    gx = size // 16
+    tile = np.repeat(list(tiles), list(tiles.values()))
+    n = tile.size
+    corner = np.stack([tile % gx, tile // gx], -1) * 16.0
+    sx, sy = rng.uniform(1.0, 4.0, size=(2, n))
+    rho = rng.uniform(-0.5, 0.5, size=n)
+    det = (sx * sy) ** 2 * (1 - rho ** 2)
+    conics = np.stack([sy ** 2, -rho * sx * sy, sx ** 2], -1) / det[:, None]
+    normals = rng.normal(size=(n, 3))
+    leaves = (corner + rng.uniform(5.0, 11.0, size=(n, 2)),
+              rng.uniform(1.0, 5.0, size=n), conics,
+              np.full(n, 3, np.int32), rng.uniform(0.0, 1.0, size=(n, 3)),
+              rng.uniform(0.05, 0.99, size=n),
+              normals / np.linalg.norm(normals, axis=-1, keepdims=True))
+    return ProjectedGaussians(*(jnp.asarray(a if a.dtype == np.int32
+                                            else a.astype(np.float32))
+                                for a in leaves))
+
+
+def jax_scan_tiles(proj, h, w):
+    """texgs's scan-twin tiles and T_final of the projected Gaussians."""
+    from texgs.kernels import binning as jbin
+    from texgs.kernels import tile_raster as jtr
+
+    jpairs = jbin.build_pairs(proj.means2d, proj.depths, proj.radii, h, w,
+                              1 << 14, CHUNK)
+    return jtr.rasterize_scan(jtr.build_pair_attrs(proj, jpairs, h, w),
+                              jpairs, h, w, CHUNK)
+
+
+@pytest.mark.parametrize("layout", list(COUNTED_TILES))
+def test_raster_scan_matches_jax_tiles_of_1_257_900_pairs(layout):
+    """raster_scan against texgs's scan twin on tiles of 1, 257 and 900
+    pairs (a batch of kernel 1 and one past it, and about the flagship's
+    heaviest tile), the other tiles empty."""
+    tiles = COUNTED_TILES[layout]
+    proj = counted_scene(tiles)
+    want = jax_scan_tiles(proj, 48, 48)
+    tproj = project.ProjectedGaussians(*(torch.as_tensor(np.array(a))
+                                         for a in proj))
+    pairs = binning.build_pairs(tproj.means2d, tproj.depths, tproj.radii, 48,
+                                48)
+    counts = dict.fromkeys(range(9), 0) | tiles
+    assert pairs.tile_counts.tolist() == [counts[t] for t in range(9)]
+    got = raster_scan(tile_raster.build_gauss_table(tproj), pairs, 3)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=3e-5)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=3e-5)
+    n_eval = got[2].numpy()
+    for t, n in counts.items():
+        assert n_eval[t].max() <= n
+        if n <= 1:
+            assert (n_eval[t] == n).all()
+    assert (n_eval[[t for t, n in tiles.items() if n == 900][0]] < 900).any()
 
 
 @pytest.mark.parametrize("backend", BACKENDS)

@@ -4,7 +4,9 @@ and the port's cubemap sampling against texgs.
 The JAX side is texgs's exact ``uvtex_raster.mlist_tex_term`` and the
 Pallas textile kernel, run as texgs's own tests run it, in interpret mode
 on the CPU (``tex_term_textile(..., catch_size=0)``), on the coherent
-in-face M-lists of tests/test_textile.py:23-38.  Tolerance: atol 2e-5 /
+in-face M-lists of tests/test_textile.py:23-38, and at m = 1 and 33 on
+pixels of 0, 1, 31 and m live slots (tests/test_torch_kernels_cuda.py's
+live_count_mlist).  Tolerance: atol 2e-5 /
 rtol 1e-4 (tests/test_textile.py:53-54); the cubemap taps themselves must
 agree to float32 rounding.
 """
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from tests.test_textile import H, W, _random_mlist, _texture
+from tests.test_torch_kernels_cuda import live_count_mlist
 from texgs.kernels import cubemap as jcube
 from texgs.kernels import uvtex_raster as juv
 from texgs.kernels.pallas_textile import tex_term_textile
@@ -68,6 +71,22 @@ def test_direction_face_uv_roundtrip_matches_jax():
                          ids=["coherent", "incoherent"])
 def test_mlist_tex_term_matches_jax(mode, coherent):
     ml = np.array(_random_mlist(seed=3, coherent=coherent))
+    tex = np.array(_texture())
+    want = juv.mlist_tex_term(jnp.asarray(ml), jnp.asarray(tex), H, W, mode)
+    got = mlist_tex_term(torch.as_tensor(ml), torch.as_tensor(tex), H, W, mode)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("m", [1, 33])
+def test_mlist_tex_term_matches_jax_at_live_counts(m, mode):
+    """At m = 1 and 33 (where kernel B's warps straddle pixels), on pixels
+    of 0, 1, 31 and m live slots, a prefix of each list, over random
+    directions: the plain version the card tests hold kernel B to."""
+    ml = live_count_mlist(4, m, seed=m)[0].numpy()
+    counts = (ml[..., 0] != 0).sum(-1)
+    assert {0, 1, m} <= set(counts.ravel().tolist())
     tex = np.array(_texture())
     want = juv.mlist_tex_term(jnp.asarray(ml), jnp.asarray(tex), H, W, mode)
     got = mlist_tex_term(torch.as_tensor(ml), torch.as_tensor(tex), H, W, mode)

@@ -7,17 +7,25 @@
 // Plain PyTorch version: texgs_torch/kernels/raster.py, raster_scan.
 //
 // Design.  Kernel A (uvtex_fused.cu) without the M-list: one thread block
-// per 16x16 tile and one thread per pixel.  The block walks its tile's
-// pairs [tile_start, tile_end) in batches of 256: each thread stages one
-// pair's record into shared memory (the exponent quadratic shifted into
-// this tile's frame, the log-opacity and the F blend channels, read by
+// per 16x16 tile and one thread per pixel; the blocks take the tiles in
+// the order `tile_order` gives (heaviest first on the main paths:
+// binning.heaviest_first), so that a heavy tile does not start last and
+// set the kernel's tail.  The block walks its tile's pairs
+// [tile_start, tile_end) in batches of 256: each thread stages one pair's
+// record into shared memory (the exponent quadratic shifted into this
+// tile's frame, the log-opacity and the F blend channels, read by
 // Gaussian index; uvtex_common.cuh stage_quad), then every pixel runs the
-// sequential front-to-back loop over the batch, reading the records as
-// shared-memory broadcasts.  The block leaves as soon as every pixel has
-// stopped (__syncthreads_count).  The TPU walked 128-pair chunks in order
-// and carried T and the stop flag in scratch between grid steps, with
-// chunk flags, _safe_tiles and a dynamic grid bound to skip dead chunks;
-// here the carries are registers and a block visits only its own range.
+// front-to-back loop over the batch, reading the records as shared-memory
+// broadcasts.  The loop takes the pairs LOOK at a time: it first computes
+// the LOOK alphas (they do not depend on T), so their exponents and exps
+// overlap, then applies them one by one with the exact stop rule; alphas
+// computed past a stop are discarded.  Every value is rounded as in the
+// parent design, so the outputs do not depend on LOOK or on the tile
+// order.  The block leaves as soon as every pixel has stopped
+// (__syncthreads_count).  The TPU walked 128-pair chunks in order and
+// carried T and the stop flag in scratch between grid steps, with chunk
+// flags, _safe_tiles and a dynamic grid bound to skip dead chunks; here
+// the carries are registers and a block visits only its own range.
 //
 // Semantics (texgs/kernels/tile_raster.py chunk_blend, reference.py):
 //   power = the tile-local quadratic (log-opacity folded in), at tile-local
@@ -43,6 +51,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "uvtex_common.cuh"
 
 namespace {
@@ -50,20 +60,25 @@ namespace {
 using namespace texgs;
 
 constexpr int BATCH = PIX;  // one staged record per thread
+// alphas computed ahead of the T chain: 8 ran fastest of 1, 2, 4, 8 and
+// 16 (16 no faster, 59 registers; scripts/ab_raster_fwd.py)
+constexpr int LOOK = 8;
+static_assert(BATCH % LOOK == 0, "a look-ahead group stays in its batch");
 
 template <int NF>
 __global__ void __launch_bounds__(PIX)
     raster_fwd(const float* __restrict__ table,
                const int* __restrict__ pair_gauss,
                const int* __restrict__ tile_start,
-               const int* __restrict__ tile_end, int gx,
+               const int* __restrict__ tile_end,
+               const int64_t* __restrict__ tile_order, int gx,
                float* __restrict__ blend, float* __restrict__ t_final,
                int* __restrict__ n_eval) {
   constexpr int TAB_COLS = TABLE_FIXED + NF - N_FIXED_F;
   __shared__ float s_quad[BATCH][8];  // 6 coefficients, log-opacity, pad
   __shared__ float s_feat[BATCH][NF];
 
-  const int tile = blockIdx.x;
+  const int tile = static_cast<int>(tile_order[blockIdx.x]);
   const int tid = threadIdx.x;
   const float tile_x = static_cast<float>((tile % gx) * TILE);
   const float tile_y = static_cast<float>((tile / gx) * TILE);
@@ -92,20 +107,29 @@ __global__ void __launch_bounds__(PIX)
     __syncthreads();
 
     const int n_batch = min(BATCH, end - base);
-    for (int k = 0; k < n_batch && !done; ++k) {
-      const float* q = s_quad[k];
-      float e;
-      const float alpha = pixel_alpha(pixel_power(x, y, q), q[6], &e);
-      ++evals;
-      const float t_next = T * (1.f - alpha);
-      if (t_next < T_STOP) {
-        done = true;
-        break;
-      }
-      const float w = alpha * T;
+    for (int k0 = 0; k0 < n_batch && !done; k0 += LOOK) {
+      float alpha[LOOK];
 #pragma unroll
-      for (int f = 0; f < NF; ++f) acc[f] += w * s_feat[k][f];
-      T = t_next;
+      for (int i = 0; i < LOOK; ++i) {
+        // a group's tail past the batch repeats its last record, unused
+        const float* q = s_quad[min(k0 + i, n_batch - 1)];
+        float e;
+        alpha[i] = pixel_alpha(pixel_power(x, y, q), q[6], &e);
+      }
+#pragma unroll
+      for (int i = 0; i < LOOK; ++i) {
+        if (k0 + i == n_batch) break;
+        ++evals;
+        const float t_next = T * (1.f - alpha[i]);
+        if (t_next < T_STOP) {
+          done = true;
+          break;
+        }
+        const float w = alpha[i] * T;
+#pragma unroll
+        for (int f = 0; f < NF; ++f) acc[f] += w * s_feat[k0 + i][f];
+        T = t_next;
+      }
     }
   }
 
@@ -117,13 +141,13 @@ __global__ void __launch_bounds__(PIX)
 
 template <int NF>
 void launch(const void* table, const void* pair_gauss, const void* tile_start,
-            const void* tile_end, int n_tiles, int gx, void* blend,
-            void* t_final, void* n_eval, cudaStream_t stream) {
+            const void* tile_end, const void* tile_order, int n_tiles, int gx,
+            void* blend, void* t_final, void* n_eval, cudaStream_t stream) {
   raster_fwd<NF><<<n_tiles, PIX, 0, stream>>>(
       static_cast<const float*>(table), static_cast<const int*>(pair_gauss),
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_end),
-      gx, static_cast<float*>(blend), static_cast<float*>(t_final),
-      static_cast<int*>(n_eval));
+      static_cast<const int64_t*>(tile_order), gx, static_cast<float*>(blend),
+      static_cast<float*>(t_final), static_cast<int*>(n_eval));
 }
 
 }  // namespace
@@ -131,21 +155,22 @@ void launch(const void* table, const void* pair_gauss, const void* tile_start,
 // Blend channels (n_tiles, 256, n_f), T_final (n_tiles, 256) and
 // evaluated-pair counts (n_tiles, 256) of every tile, from the
 // per-Gaussian table (N, tab_cols) of tile_raster.build_gauss_table.
-// n_f = 7 and n_f = 10 are built (tab_cols = 16 + n_f - 7).  Returns the
-// launch's cudaGetLastError().
+// n_f = 7 and n_f = 10 are built (tab_cols = 16 + n_f - 7).  tile_order
+// is a permutation of the n_tiles tiles (int64), the order in which the
+// blocks take them.  Returns the launch's cudaGetLastError().
 extern "C" int raster_forward(const void* table, int tab_cols,
                               const void* pair_gauss, const void* tile_start,
-                              const void* tile_end, int n_tiles, int gx,
-                              int n_f, void* blend, void* t_final,
-                              void* n_eval, void* stream) {
+                              const void* tile_end, const void* tile_order,
+                              int n_tiles, int gx, int n_f, void* blend,
+                              void* t_final, void* n_eval, void* stream) {
   if (tab_cols != TABLE_FIXED + n_f - N_FIXED_F)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TEXGS_CASE(NF)                                                      \
   case NF:                                                                  \
     if (n_tiles <= 0) return 0;                                             \
-    launch<NF>(table, pair_gauss, tile_start, tile_end, n_tiles, gx, blend, \
-               t_final, n_eval, s);                                         \
+    launch<NF>(table, pair_gauss, tile_start, tile_end, tile_order, n_tiles, \
+               gx, blend, t_final, n_eval, s);                              \
     break;
   switch (n_f) {
     TEXGS_CASE(7)

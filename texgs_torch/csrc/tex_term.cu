@@ -7,16 +7,27 @@
 // mlist_tex_term, whose port is the plain PyTorch version
 // (texgs_torch/kernels/tex_term.py, mlist_tex_term).
 //
-// Design.  One thread block per 16x16 tile, one thread per pixel.  For each
-// slot with w != 0 the thread reads the slot as one float4 and samples the
-// (6, R, R, 3) cubemap: 4 bilinear taps (1 at 'nearest'), each a 12-byte
-// texel read straight from device memory through L2.  A tap past a face
-// edge is re-resolved through its 3D direction onto the adjacent face, and
-// a tap past a cube corner averages the 3 texels that meet there
-// (cube_tap; texgs/kernels/cubemap.py:111-153).  The TPU kernel worked
-// over VMEM windows, a mip atlas and a 16^2 catch-all pack because TPU
-// gathers are slow, and those approximate this function; here every tap is
-// fetched exactly, so nothing can miss.
+// Design.  One thread per M-list slot: the threads run flat over the
+// (n_tiles, 256, m) slots, slot fastest, as kernel B' does, so a warp
+// reads its 32 slots as 512 contiguous bytes (at m = 32 a warp is one
+// pixel).  A thread whose slot is live (w != 0) samples the
+// (6, R, R, 3) cubemap at the slot's direction: 4 bilinear taps (1 at
+// 'nearest'), each a 12-byte texel read straight from device memory
+// through L2.  A tap past a face edge is re-resolved through its 3D
+// direction onto the adjacent face, and a tap past a cube corner averages
+// the 3 texels that meet there (cube_tap; texgs/kernels/cubemap.py:111-
+// 153).  A dead slot adds zero by a select, so nothing read from its uv
+// (a NaN, say) reaches the sum.  The slots' w * tex are summed over each
+// pixel's lanes of the warp by a segmented shuffle reduction; a block
+// holds whole pixels (BLOCK / m of them, or one of m > BLOCK slots), and
+// one thread a pixel adds the partial sums of the warps its pixel spans,
+// in warp order, from shared memory, then writes C0 * sum.  The sums are
+// deterministic.  The parent design ran one thread a pixel over its m
+// slots: a warp read 32 slots 512 bytes apart, and ran as long as its
+// longest list (57% of the flagship's slots are dead).  The TPU kernel
+// worked over VMEM windows, a mip atlas and a 16^2 catch-all pack because
+// TPU gathers are slow, and those approximate this function; here every
+// tap is fetched exactly, so nothing can miss.
 //
 // Bound on Hopper: bytes.  The M-list read (m * 16 bytes a pixel) and the
 // texels touched dominate; a live slot costs about 300 f32 operations.  The
@@ -35,6 +46,8 @@ using namespace texgs;
 
 constexpr int TILE = 16;
 constexpr int PIX = TILE * TILE;
+constexpr int BLOCK = 256;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float3 texel(const float* __restrict__ tex,
                                         int at) {
@@ -88,32 +101,96 @@ __device__ __forceinline__ float3 sample_cube(const float* __restrict__ tex,
                      top.z * ay + bot.z * wy);
 }
 
-__global__ void __launch_bounds__(PIX)
+// Block b holds pixels [b * ppb, (b + 1) * ppb) of the n_pix, and walks
+// their slots BLOCK at a time.  Asked to fit 6 blocks an SM (at most 40
+// registers, no spills; 58 unbounded, 4 blocks): the taps' loads are the
+// latency to hide, and more warps in flight hide more of it.
+__global__ void __launch_bounds__(BLOCK, 6)
     tex_term_forward(const float4* __restrict__ mlist,
                      const float* __restrict__ tex, int res, float lim,
-                     int mode, int m, int gx, int height, int width,
-                     float* __restrict__ out) {
-  const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float4* list = mlist + (static_cast<size_t>(tile) * PIX + tid) * m;
-  float r = 0.f, g = 0.f, b = 0.f;
-  for (int s = 0; s < m; ++s) {
-    const float4 e = list[s];
-    if (e.x == 0.f) continue;  // w = 0 adds 0 * tex
-    const float3 t = sample_cube(tex, res, lim, mode, e.y, e.z, e.w);
-    r += e.x * t.x;
-    g += e.x * t.y;
-    b += e.x * t.z;
+                     int mode, int m, int ppb, int n_pix, int gx, int height,
+                     int width, float* __restrict__ out) {
+  __shared__ float s_part[BLOCK][3];  // each warp segment's sum, at its head
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int p0 = blockIdx.x * ppb;
+  const int n_own = min(ppb, n_pix - p0);
+  const long long s0 = static_cast<long long>(p0) * m;
+  const long long s1 = s0 + static_cast<long long>(n_own) * m;
+  float3 sum = make_float3(0.f, 0.f, 0.f);  // pixel p0 + tid's, tid < n_own
+
+  for (long long base = s0; base < s1; base += BLOCK) {
+    const long long s = base + tid;
+    float3 c = make_float3(0.f, 0.f, 0.f);
+    int rest = 0;  // slots of this slot's pixel after it
+    bool head = lane == 0;
+    if (s < s1) {
+      // s - s0 < max(BLOCK, m): the slot's place in its pixel in int math
+      const int k = (static_cast<int>(base - s0) + tid) % m;
+      rest = m - 1 - k;
+      head = head || k == 0;
+      const float4 e = mlist[s];
+      if (e.x != 0.f) {  // w = 0 adds 0 * tex: selected away, never summed
+        const float3 t = sample_cube(tex, res, lim, mode, e.y, e.z, e.w);
+        c = make_float3(e.x * t.x, e.x * t.y, e.x * t.z);
+      }
+    }
+    // segmented sum over each pixel's run of lanes: lane l ends with the
+    // sum of its slot and the later slots of its pixel in this warp
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float x = __shfl_down_sync(FULL, c.x, off);
+      const float y = __shfl_down_sync(FULL, c.y, off);
+      const float z = __shfl_down_sync(FULL, c.z, off);
+      if (off <= rest && lane + off < 32) {
+        c.x += x;
+        c.y += y;
+        c.z += z;
+      }
+    }
+    if (head) {
+      s_part[tid][0] = c.x;
+      s_part[tid][1] = c.y;
+      s_part[tid][2] = c.z;
+    }
+    __syncthreads();
+    if (tid < n_own) {
+      // the heads of pixel p0 + tid's slots in this round: its first slot
+      // here, then each warp start inside its run
+      const long long first = s0 + static_cast<long long>(tid) * m;
+      const int lo = static_cast<int>(max(first, base) - base);
+      const int hi = static_cast<int>(
+          min(first + m, base + BLOCK) - base);
+      for (int h = lo; h < hi; h = (h & ~31) + 32) {
+        sum.x += s_part[h][0];
+        sum.y += s_part[h][1];
+        sum.z += s_part[h][2];
+      }
+    }
+    __syncthreads();
   }
-  const int y = (tile / gx) * TILE + tid / TILE;
-  const int x = (tile % gx) * TILE + tid % TILE;
-  if (y < height && x < width) {
-    const size_t plane = static_cast<size_t>(height) * width;
-    const size_t at = static_cast<size_t>(y) * width + x;
-    out[at] = C0 * r;
-    out[plane + at] = C0 * g;
-    out[2 * plane + at] = C0 * b;
+
+  if (tid < n_own) {
+    const int pix = p0 + tid;
+    const int tile = pix / PIX, t = pix % PIX;
+    const int y = (tile / gx) * TILE + t / TILE;
+    const int x = (tile % gx) * TILE + t % TILE;
+    if (y < height && x < width) {
+      const size_t plane = static_cast<size_t>(height) * width;
+      const size_t at = static_cast<size_t>(y) * width + x;
+      out[at] = C0 * sum.x;
+      out[plane + at] = C0 * sum.y;
+      out[2 * plane + at] = C0 * sum.z;
+    }
   }
+}
+
+void launch(const float4* mlist, const float* tex, int res, float lim,
+            int mode, int n_tiles, int m, int gx, int height, int width,
+            float* out, cudaStream_t stream) {
+  const int n_pix = n_tiles * PIX;
+  const int ppb = max(1, BLOCK / m);
+  tex_term_forward<<<(n_pix + ppb - 1) / ppb, BLOCK, 0, stream>>>(
+      mlist, tex, res, lim, mode, m, ppb, n_pix, gx, height, width, out);
 }
 
 }  // namespace
@@ -130,8 +207,8 @@ extern "C" int tex_term_forward(const void* mlist, const void* texture,
   if (m <= 0 || res <= 0 || mode < BILINEAR || mode > NEAREST)
     return static_cast<int>(cudaErrorInvalidValue);
   const float lim = static_cast<float>(1.0 - 1.0 / res);
-  tex_term_forward<<<n_tiles, PIX, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(mlist), static_cast<const float*>(texture),
-      res, lim, mode, m, gx, height, width, static_cast<float*>(out));
+  launch(static_cast<const float4*>(mlist), static_cast<const float*>(texture),
+         res, lim, mode, n_tiles, m, gx, height, width,
+         static_cast<float*>(out), static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

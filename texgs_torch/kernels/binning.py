@@ -27,9 +27,8 @@ class PairList(NamedTuple):
     n_pairs: torch.Tensor      # () int64 true (uncapped) pair count
     overflowed: torch.Tensor   # () bool: pair_cap exceeded (pairs dropped)
     # (T,) int64 tiles in descending order of tile_counts, the order in
-    # which kernels A, 1' and 2' take them (heaviest_first); set by
-    # with_tile_order on the fused stage-3 path and where a render will be
-    # differentiated
+    # which kernels A, 1, 1' and 2' take them (heaviest_first); set by
+    # with_tile_order in every render that launches A or 1
     tile_order: Optional[torch.Tensor] = None
 
 

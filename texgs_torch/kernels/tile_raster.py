@@ -196,8 +196,8 @@ def rasterize_tiled(proj: ProjectedGaussians, height: int, width: int,
 
     pairs = build_pairs(proj.means2d, proj.depths, proj.radii, height, width)
     table = build_gauss_table(proj)
-    if table.requires_grad:  # kernel 1' will take the tiles heaviest first
-        pairs = with_tile_order(pairs)
+    # kernels 1 and 1' take the tiles heaviest first
+    pairs = with_tile_order(pairs)
     tiles_out, t_final, _ = raster_pairs(table, pairs,
                                          grid_shape(height, width)[1])
     out = assemble_image(tiles_out, t_final, height, width, bg, 0,

@@ -240,15 +240,12 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
     table = build_gauss_table(proj, extra_attrs)
     uv_rows, rays = build_uv_rows(tables), ray_constants(camera)
     gx = grid_shape(height, width)[1]
+    # kernel A, or kernels 1, 1' and 2', take the tiles heaviest first
+    pairs = with_tile_order(pairs)
     if path == "fused":
-        # kernel A takes the tiles heaviest first
-        pairs = with_tile_order(pairs)
         tiles_out, t_final, mlist, _ = fused_pairs(table, uv_rows, pairs,
                                                    rays, gx, m)
     else:
-        if table.requires_grad or uv_rows.requires_grad:
-            # kernels 1' and 2' take the tiles heaviest first
-            pairs = with_tile_order(pairs)
         tiles_out, t_final, _ = raster_pairs(table, pairs, gx)
         mlist = mlist_pairs(table, uv_rows, pairs, rays, gx, m)
     base = assemble_image(tiles_out, t_final, height, width, bg, n_extra)
