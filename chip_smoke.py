@@ -52,7 +52,8 @@ one card.  Phases, in order; any failure exits non-zero:
                 captured hash-grid arguments: the corners K5' picks (bit
                 for bit), its features and the gradients of K5'' against
                 their plain versions, the gather on the step's own corner
-                indices; their times beside their plain versions, bounds
+                indices (and on all but its last 3 queries, the gather's
+                scalar path); their times beside their plain versions, bounds
                 and library calls (the gather as table[level, idx], the
                 scatter as index_put_); one HashGrid call's device launches
                 (at most 6) beside the plain chain's;
@@ -87,8 +88,10 @@ one card.  Phases, in order; any failure exits non-zero:
  16. two-kernel render -- the model of phase 3 with model_cfg.backend
                 pallas (kernel 1 blends, kernel 2 writes the M-lists):
                 kernels 2 and 1 (F = 10) against their plain versions on
-                view 0's arguments, kernel 1 also in both tile orders (bit
-                for bit); the 3 views, the chessboard retexture and
+                view 0's arguments, both also in both tile orders (bit
+                for bit), kernel 2 also into output memory that held NaN
+                (bit for bit: every dead slot written 0) and at m = 1 and
+                33; the 3 views, the chessboard retexture and
                 the 3 views again through visual_step, each image held
                 against the fused path's of phase 5, with kernels 1, 2 and B
                 launched once a view and A never;
@@ -767,6 +770,12 @@ def hash_kernel_phase(torch, enc_args, launches):
         got_k = kh.hash_gather(table, idx_w)
         err_k = check_close(torch, "K5 hash gather (the step's corners)",
                             got_k, kh.gather_plain(table, idx_w), atol=0.0)
+        # a query count that is no multiple of 4 takes the scalar path
+        idx_odd = idx_w[:, :n - n % 4 - 3].contiguous()
+        err_k = max(err_k, check_close(
+            torch, f"K5 hash gather (the first {idx_odd.shape[1]} queries)",
+            kh.hash_gather(table, idx_odd), kh.gather_plain(table, idx_odd),
+            atol=0.0))
 
         # the library calls: the gather as advanced indexing, and the
         # plain backward's scatter-add (index_put_) on the same cotangent
@@ -1421,6 +1430,47 @@ def check_kernel_2(torch, got, want):
     return max(errs.values())
 
 
+def check_kernel_2_more(torch, m_args, got):
+    """Kernel 2 on view 0's arguments `m_args`, beyond check_kernel_2: with
+    its tiles heaviest first and in launch order, and into output memory
+    that held NaN, each the M-lists `got` bit for bit (a dead slot is
+    written 0, not left); at m = 1 and 33 against its plain version."""
+    from texgs_torch.kernels import binning
+    from texgs_torch.kernels import uvtex_mlist as km
+
+    table, uv_rows, pairs, rays, gx, m = m_args
+    n_tiles = pairs.tile_counts.numel()
+    for name, order in (
+            ("heaviest first", binning.with_tile_order(pairs).tile_order),
+            ("launch order", torch.arange(n_tiles, device=table.device))):
+        out = km.mlist_pairs_forward(table, uv_rows, pairs._replace(
+            tile_order=order), rays, gx, m)
+        same = torch.equal(out, got)
+        log(f"  2 with its tiles {name}: M-lists bit for bit: {same}")
+        if not same:
+            fail("kernel 2's outputs depend on the order it takes the tiles "
+                 "in")
+    del out
+    junk = [torch.full(got.shape, math.nan, device=table.device)
+            for _ in range(2)]
+    ptrs = {t.data_ptr() for t in junk}
+    del junk
+    again = km.mlist_pairs_forward(*m_args)
+    n_dead = int((got[..., 0] == 0).sum())
+    same = again.data_ptr() in ptrs and torch.equal(again, got)
+    log(f"  2 into output memory that held NaN: M-lists bit for bit, "
+        f"{n_dead} dead slots written 0: {same}")
+    if not same:
+        fail("kernel 2 left a dead slot unwritten, or its output memory "
+             "held no NaN")
+    del again
+    for m_more in (1, 33):
+        args = (*m_args[:5], m_more)
+        log(f"  2 at m = {m_more}:")
+        check_kernel_2(torch, km.mlist_pairs_forward(*args),
+                       km.mlist_only_scan(*args))
+
+
 def mlist_evaluated(torch, table, pairs, rays, gx, m):
     """The (pixel, pair) entries kernels 2 and 2' evaluate: each pixel's
     pairs up to its m-th contributor or its T stop, whichever comes first,
@@ -1499,8 +1549,12 @@ def two_kernel_phases(torch, device, sd0, cams, views, retextured, chess,
             fail("the two-kernel render handed kernel 1 a pair list without "
                  "its tile order")
         check_tile_orders(torch, table, pairs, gx, got_1)
+        if m_args[2].tile_order is None:
+            fail("the two-kernel render handed kernel 2 a pair list without "
+                 "its tile order")
         got_2 = km.mlist_pairs_forward(*m_args)
         err_2 = check_kernel_2(torch, got_2, km.mlist_only_scan(*m_args))
+        check_kernel_2_more(torch, m_args, got_2)
 
     counters = {"raster": kr.raster_pairs, "uvtex_mlist": km.mlist_pairs,
                 "tex_term": kt.tex_term, "uvtex_fused": kf.fused_pairs}

@@ -67,14 +67,25 @@ def test_indices_and_weights_match_texgs():
     np.testing.assert_allclose(w.numpy(), np.asarray(w_w), atol=1e-6)
 
 
-def test_gather_matches_pallas_interpret():
-    table, x = _setup(n=BLOCK_Q)
-    idx, _ = jhg._indices_and_weights(jnp.asarray(x), 4, 4096)
-    want = jax_hash_gather(jnp.asarray(table), idx, 4, 8)
-    got = hash_gather(torch.as_tensor(table), torch.as_tensor(np.array(idx)))
+# (levels, log2 table rows, F): the flagship's F = 4 and 8 levels on
+# smaller tables, as the interpret-mode kernel's time grows with levels x
+# rows x F (the flagship's 8 levels of 4,096 rows of 4 take ~75 s on a CPU)
+@pytest.mark.parametrize("levels,log2,feats", [(4, 12, 2), (2, 10, 4),
+                                               (2, 8, 2), (8, 7, 4)])
+def test_gather_matches_pallas_interpret(levels, log2, feats):
+    """The gather (its plain version on the CPU) against texgs's Pallas
+    hash_gather in interpret mode, exactly, at F = 2 and 4; every corner
+    row's first and last query read table rows 0 and T - 1.  texgs needs
+    T % 128 == 0 and N % 1024 == 0."""
+    table, x = _setup(n=BLOCK_Q, levels=levels, feats=feats, log2=log2)
+    idx, _ = jhg._indices_and_weights(jnp.asarray(x), levels, 2 ** log2)
+    idx = np.array(idx)
+    idx[:, 0], idx[:, -1] = 0, 2 ** log2 - 1
+    want = jax_hash_gather(jnp.asarray(table), jnp.asarray(idx), levels, 8)
+    got = hash_gather(torch.as_tensor(table), torch.as_tensor(idx))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(
-        gather_plain(torch.as_tensor(table), torch.as_tensor(np.array(idx))).numpy(),
+        gather_plain(torch.as_tensor(table), torch.as_tensor(idx)).numpy(),
         np.asarray(want))
 
 

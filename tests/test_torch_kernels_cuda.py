@@ -499,14 +499,41 @@ def test_tex_term_backward_with_every_slot_on_one_texel(cuda_device, corner,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("levels,size,n", [(8, 4096, 8192), (2, 256, 1000)])
-def test_hash_gather_kernel_matches_plain(cuda_device, levels, size, n):
-    table, idx = hash_inputs(levels, size, n=n)
+@pytest.mark.parametrize("feats", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("levels,size,n", [(8, 4096, 8192), (2, 256, 1000),
+                                           (2, 256, 4)])
+def test_hash_gather_kernel_matches_plain(cuda_device, levels, size, n,
+                                          feats):
+    """The gather exactly, on its vector path (F = 2 or 4 and n % 4 == 0)
+    and its scalar path (other F, n = 1000), with every corner row's first
+    and last query on table rows 0 and T - 1."""
+    table, idx = hash_inputs(levels, size, feats, n=n)
+    idx[:, 0], idx[:, -1] = 0, size - 1
     table, idx = table.to(cuda_device), idx.to(cuda_device)
     before = hash_gather.launches
     got = hash_gather(table, idx)
     torch.cuda.synchronize()
     assert hash_gather.launches == before + 1
+    torch.testing.assert_close(got, gather_plain(table, idx), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["table", "idx"])
+def test_hash_gather_kernel_on_unaligned_tensors(cuda_device, what):
+    """A table or index tensor 4 bytes past a 16-byte boundary takes the
+    gather's scalar path: the same values exactly."""
+    table, idx = hash_inputs(8, 4096, 4, n=8192)
+    table, idx = table.to(cuda_device), idx.to(cuda_device)
+    src = table if what == "table" else idx
+    moved = torch.empty(src.numel() + 1, dtype=src.dtype,
+                        device=cuda_device)[1:].view(src.shape)
+    moved.copy_(src)
+    assert moved.data_ptr() % 16 == 4
+    if what == "table":
+        table = moved
+    else:
+        idx = moved
+    got = hash_gather(table, idx)
     torch.testing.assert_close(got, gather_plain(table, idx), rtol=0, atol=0)
 
 
@@ -977,17 +1004,22 @@ def test_tile_order_set_on_the_two_kernel_path(monkeypatch, grad):
         torch.as_tensor(cam.world_view), torch.as_tensor(cam.full_proj),
         campos, 48, 32, cam.tanfovx, cam.tanfovy)
     uvs = xyz / torch.linalg.norm(xyz, dim=-1, keepdim=True)
-    seen = []
+    seen, seen_fwd = [], []
     raster, mlist = kr.raster_pairs, km.mlist_pairs
+    mlist_fwd = km.mlist_pairs_forward
     monkeypatch.setattr(kr, "raster_pairs",
                         lambda t, p, gx: seen.append(p) or raster(t, p, gx))
     monkeypatch.setattr(km, "mlist_pairs",
                         lambda *a: seen.append(a[2]) or mlist(*a))
+    # kernel 2's own entry, which launches it on the card
+    monkeypatch.setattr(km, "mlist_pairs_forward",
+                        lambda *a: seen_fwd.append(a[2]) or mlist_fwd(*a))
     uvtex_raster.rasterize_uvtex(
         proj, scaling, rot, xyz, uvs, torch.zeros((n, 9)),
         random_texture(8), torch.zeros((n, 15, 3)), 1, cam, torch.zeros(3),
         m=8, backend="pallas")
     assert len(seen) == 2 and seen[0] is seen[1]
+    assert seen_fwd == [seen[0]]
     assert torch.equal(seen[0].tile_order,
                        binning.heaviest_first(seen[0].tile_counts))
 
@@ -1340,20 +1372,86 @@ def _slots_off(got, want):
                .flatten(2).any(-1).sum())
 
 
+def assert_mlist_orders_agree(args):
+    """Kernel 2 with the tiles heaviest first and in launch order
+    (tile_order = arange): the same M-lists bit for bit, within
+    _slots_off's allowance of the plain version.  Returns the M-lists."""
+    table, uv_rows, pairs, rays, gx, m = args
+    heavy = binning.with_tile_order(pairs)
+    launch = pairs._replace(tile_order=torch.arange(
+        pairs.tile_counts.numel(), device=table.device))
+    if bool((pairs.tile_counts[1:] > pairs.tile_counts[:-1]).any()):
+        assert not torch.equal(heavy.tile_order, launch.tile_order)
+    before = mlist_pairs.launches
+    got = mlist_pairs(table, uv_rows, heavy, rays, gx, m)
+    again = mlist_pairs(table, uv_rows, launch, rays, gx, m)
+    torch.cuda.synchronize()
+    assert mlist_pairs.launches == before + 2
+    assert torch.equal(got, again)
+    want = mlist_only_scan(*args)
+    assert _slots_off(got, want) <= 4
+    assert (got[..., 0] - want[..., 0]).abs().max().item() <= 0.05
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n_extra", [(8, 3), (32, 3), (32, 0), (5, 0)])
 def test_mlist_kernel_matches_plain(cuda_device, m, n_extra):
-    """Kernel 2 against its plain version, and against kernel A's M-lists:
-    the two-kernel render and the fused one keep the same contributors."""
+    """Kernel 2 against its plain version in both tile orders, and against
+    kernel A's M-lists: the two-kernel render and the fused one keep the
+    same contributors."""
     args = _to(cuda_device, kernel_a_inputs(m=m, n_extra=n_extra))
-    before = mlist_pairs.launches
+    got = assert_mlist_orders_agree(args)
+    want = fused_pairs(*args)[2]
+    assert _slots_off(got, want) <= 4
+    assert (got[..., 0] - want[..., 0]).abs().max().item() <= 0.05
+    assert bool((got[..., 0] > 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", list(A_EDGE_COUNTS))
+@pytest.mark.parametrize("m", [1, 8, 32, 33])
+def test_mlist_kernel_at_batch_edges(cuda_device, m, order):
+    """Kernel 2 on tiles of A_EDGE_COUNTS pairs (0, 1, 255, 256, 257, 897
+    among them), heaviest first and in launch order, at m = 1 and 33 (a
+    pixel's slots straddle warps in the block's zeroing) beside 8 and 32:
+    each pixel's live slots are a prefix of its list, and the empty tile
+    holds none."""
+    counts = A_EDGE_COUNTS[order]
+    args = _to(cuda_device, edge_count_inputs(counts, m=m))
+    got = assert_mlist_orders_agree(args)
+    live = got[..., 0] != 0
+    n_live = live.sum(-1, keepdim=True)
+    assert torch.equal(live, torch.arange(m, device=cuda_device) < n_live)
+    empty = torch.tensor(counts, device=cuda_device) == 0
+    assert not bool(got[empty].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 32, 33])
+def test_mlist_kernel_dead_slots_zero_over_nan_memory(cuda_device, m):
+    """Kernel 2 writes every slot of its M-lists: where the caching
+    allocator hands it a block that held NaN, the dead slots (those after
+    a pixel's last entry) come out exactly zero.  The tile order is set
+    first, so that the wrapper allocates the M-lists alone."""
+    table, uv_rows, pairs, rays, gx, _ = _to(cuda_device,
+                                             kernel_a_inputs(m=m))
+    args = (table, uv_rows, binning.with_tile_order(pairs), rays, gx, m)
+    shape = (pairs.tile_counts.numel(), 256, m, 4)
+    junk = [torch.full(shape, float("nan"), device=cuda_device)
+            for _ in range(4)]
+    ptrs = {t.data_ptr() for t in junk}
+    del junk
     got = mlist_pairs(*args)
     torch.cuda.synchronize()
-    assert mlist_pairs.launches == before + 1
-    for want in (mlist_only_scan(*args), fused_pairs(*args)[2]):
-        assert _slots_off(got, want) <= 4
-        assert (got[..., 0] - want[..., 0]).abs().max().item() <= 0.05
-    assert bool((got[..., 0] > 0).any())
+    assert got.data_ptr() in ptrs
+    assert bool(torch.isfinite(got).all())
+    w = got[..., 0]
+    n_live = (w != 0).sum(-1, keepdim=True)
+    dead = torch.arange(m, device=cuda_device) >= n_live
+    assert bool((w[~dead] > 0).all())
+    assert not bool(got[dead].any())
+    assert _slots_off(got, mlist_only_scan(*args)) <= 4
 
 
 @pytest.mark.cuda

@@ -65,7 +65,8 @@ def _kernel_args(port, m):
             rays, gx, m)
 
 
-@pytest.fixture(scope="module", params=[8, 96], ids=["m8", "m96"])
+@pytest.fixture(scope="module", params=[1, 8, 33, 96],
+                ids=["m1", "m8", "m33", "m96"])
 def mlist_runs(request):
     m = request.param
     sc = scene()

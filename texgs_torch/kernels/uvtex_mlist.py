@@ -68,7 +68,7 @@ def mlist_only_scan_vjp(table: torch.Tensor, uv_rows: torch.Tensor,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _RAYS = ctypes.POINTER(ctypes.c_float)
-_FWD_ARGS = [_P, _I, _P, _P, _P, _P, _RAYS, _I, _I, _I, _P, _P]
+_FWD_ARGS = [_P, _I, _P, _P, _P, _P, _P, _RAYS, _I, _I, _I, _P, _P]
 _BWD_ARGS = [_P, _I, _P, _P, _P, _P, _P, _RAYS, _I, _I, _I, _P, _P, _P, _P,
              _P]
 
@@ -77,17 +77,20 @@ def mlist_pairs_forward(table: torch.Tensor, uv_rows: torch.Tensor,
                         pairs: PairList, rays: np.ndarray, gx: int, m: int):
     """Kernel 2 without autograd: the M-lists (T, PIX, m, 4) of every tile.
     CPU tensors take the plain version; CUDA tensors launch
-    csrc/uvtex_mlist.cu."""
+    csrc/uvtex_mlist.cu, which takes the tiles in the pair list's
+    ``tile_order`` (heaviest first; computed here for a list without
+    one).  The order changes no output."""
     if table.device.type == "cpu":
         return mlist_only_scan(table, uv_rows, pairs, rays, gx, m)
     check_pair_args("mlist_pairs", table, uv_rows, pairs, m)
     n_tiles = pairs.tile_counts.shape[0]
+    order = tile_order_arg("mlist_pairs", pairs, table.device)
     mlist = torch.empty((n_tiles, PIX, m, 4), device=table.device)
     p = _build.ptr
     err = _build.function("uvtex_mlist", "uvtex_mlist_forward", _FWD_ARGS)(
         p(table), table.shape[1], p(uv_rows), p(pairs.pair_gauss),
-        p(pairs.tile_start), p(pairs.tile_end), rays9(rays), n_tiles, gx, m,
-        p(mlist), _build.stream_of(table))
+        p(pairs.tile_start), p(pairs.tile_end), p(order), rays9(rays),
+        n_tiles, gx, m, p(mlist), _build.stream_of(table))
     if err:
         raise RuntimeError(f"uvtex_mlist_forward failed: CUDA error {err}")
     if n_tiles > 0:  # the C entry launches nothing for an empty grid

@@ -240,7 +240,7 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
     table = build_gauss_table(proj, extra_attrs)
     uv_rows, rays = build_uv_rows(tables), ray_constants(camera)
     gx = grid_shape(height, width)[1]
-    # kernel A, or kernels 1, 1' and 2', take the tiles heaviest first
+    # kernel A, or kernels 1, 2, 1' and 2', take the tiles heaviest first
     pairs = with_tile_order(pairs)
     if path == "fused":
         tiles_out, t_final, mlist, _ = fused_pairs(table, uv_rows, pairs,
