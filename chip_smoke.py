@@ -109,8 +109,42 @@ one card.  Phases, in order; any failure exits non-zero:
                 as a process of its own, asked for one /frame over HTTP:
                 finite metrics, every PNG read back, one frame.
 
+ 19. golden -- tests/test_pipeline_3stage.py on the port from files on
+                disk: python -m texgs_torch.tools.make_dataset writes its
+                Blender scene (512 points, 6 + 2 views of 48^2, the dense
+                oracle's renders), then driver.train runs stage 1
+                (synthetic_smoke.yaml, 150 iterations), extract_pcd (512
+                points), stage 2 (synthetic_uv_map.yaml, 120) and stage 3
+                (synthetic_texture.yaml, 240) with the test's overrides
+                but an M-list that cuts no pixel's list (GOLDEN_M), and
+                the untrained stage-3 baseline; gated as the test gates
+                texgs: tests/goldens/pipeline_3stage.json's floors (s1, s3
+                PSNR, s3 SSIM), s3 >= s1 - 5.5 dB, s3 >= the baseline + 2
+                dB, a texture that got a gradient, unit UVs with a cycle
+                error under 2 and both chess colours; and stage 3's test
+                renders against the port's dense oracle; kernels
+                1 and 1' at least once a stage-1 step, K5' and K5'' a
+                stage-2 step, A, A', B and B' a stage-3 step (K5' and K5''
+                a step of the inverse loss);
+ 20. formats -- stage 1 (150 iterations) from a COLMAP and from a NeILF
+                scene the writer made (16 spiral views of 48^2):
+                the 14 / 2 splits, the masks and normals of NeILF, the
+                native IO library built and agreeing with the Python
+                parsers, a test PSNR above 15 dB;
+ 21. prod scene -- configs/prod_stage1.yaml's checker_prod scene (50,000
+                points, 64 + 8 spiral views of 800x600, tiled renders)
+                written, read back through Scene (each ground truth
+                against the writer's float render, to 8-bit
+                quantisation) and trained 20 iterations through
+                driver.train with an evaluation; the seconds of each.
+
 The line before the last is a JSON object with one entry per kernel
 (eleven); the last line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --golden-seeds 0,1,2
+
+runs phases 1 and 19 alone, once for each training seed (Python's,
+numpy's and torch's generators, and each stage model's).
 """
 
 from __future__ import annotations
@@ -1411,6 +1445,405 @@ def driver_phase(work_dir, device):
     return psnr1, psnr2
 
 
+GOLDEN = "tests/goldens/pipeline_3stage.json"
+# tests/test_pipeline_3stage.py's scene (:52-58), written by the port
+GOLDEN_SCENE = ["--n", "512", "--views", "6", "--test_views", "2",
+                "--size", "48", "--init_ply"]
+# stage 3's M-list length.  texgs recorded the golden on the CPU, where its
+# `auto` backend renders stage 3 with the dense oracle (N <= 4096), whose
+# texture term no M-list cuts: kernel A computes that term when m exceeds
+# every pixel's contributor count (at most 111 at the end of this stage's
+# CPU rehearsals), and the phase checks it against the port's oracle.  The
+# test's m = 16 (which texgs's oracle ignores) cuts the term where a pixel
+# has more contributors: texgs's own M-list path at m = 16 (its scan twin)
+# reached 19.763 dB against its oracle's 20.652 on one scene (PERF.md).
+GOLDEN_M = 256
+# tests/test_pipeline_{colmap,neilf}.py's scenes
+FORMAT_SCENE = ["--n", "512", "--views", "16", "--test_views", "0",
+                "--size", "48", "--spiral"]
+# scripts/run_prod_pipeline.py:115-118, the data of configs/prod_stage1.yaml
+PROD_SCENE = ["--kind", "checker", "--spiral", "--backend", "scan",
+              "--n", "50000", "--views", "64", "--test_views", "8",
+              "--width", "800", "--height", "600", "--init_ply"]
+PROD_ITERS = 20
+
+
+def seeded(torch, seed):
+    """The seeds of the port's command line (train/__main__.py)."""
+    import random
+
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def stage_cfg(config, work_dir, data_root, iters, seed=0, **sections):
+    """A config of configs/ cut as the tests cut it: `iters` iterations,
+    one evaluation and one checkpoint at the end, the data on disk at
+    `data_root`, `sections` merged into its sections.  A stage's model
+    seed is its default plus 100 `seed`."""
+    import os
+
+    from texgs_torch.config import load_config
+
+    cfg = load_config(config)
+    cfg.work_dir = work_dir
+    os.makedirs(f"{work_dir}/checkpoints", exist_ok=True)
+    cfg.debug = False
+    cfg.dataset_cfg.data_root_dir = data_root
+    cfg.train_cfg.update(num_iterations=iters, visual_iters=[iters],
+                         ckpt_iters=[iters])
+    for section, values in sections.items():
+        for key, value in values.items():    # "a.b.c": a nested key
+            *parents, leaf = key.split(".")
+            target = cfg[section]
+            for part in parents:
+                target = target[part]
+            target[leaf] = value
+    default = {"Gaussian3D": 0, "UVMapGaussian3D": 1,
+               "TextureGaussian3D": 2}[cfg.model_cfg.type]
+    cfg.model_cfg.seed = default + 100 * seed
+    return cfg
+
+
+def counted_train(torch, cfg, counters, device, scene=None):
+    """driver.train with the kernels of `counters` counted from 0.
+    Returns (model, scene, evaluation, seconds, launches)."""
+    from texgs_torch.train import driver
+    from texgs_torch.utils.logger import get_logger
+
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    model, scene, ev = driver.train(cfg, get_logger("texgs_torch.smoke"),
+                                    scene=scene, progress=False,
+                                    device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return (model, scene, ev, time.perf_counter() - t0,
+            {name: fn.launches for name, fn in counters.items()})
+
+
+def check_launches(what, launches, at_least):
+    """Every kernel of `at_least` launched at least that often."""
+    for name, n in at_least.items():
+        if launches[name] < n:
+            fail(f"{what}: kernel {name} launched {launches[name]} times, "
+                 f"expected at least {n} (once a step)")
+
+
+def golden_phase(torch, device, work_dir, seed=0, m=GOLDEN_M):
+    """Phase 19 (see the module docstring): tests/test_pipeline_3stage.py
+    on the port, from files its writer made, gated on
+    tests/goldens/pipeline_3stage.json.  Returns each stage's
+    (test PSNR, test SSIM, seconds), the untrained baseline's, and the
+    gates it missed ("missed")."""
+    from texgs_torch.kernels import raster as kr
+    from texgs_torch.kernels import tex_term as kt
+    from texgs_torch.kernels import uvtex_fused as kf
+    from texgs_torch.tools import make_dataset
+    from texgs_torch.tools.extract_pcd import extract_pcd
+    from texgs_torch.train import driver
+    from texgs_torch.train.models import create_model
+    from texgs_torch.data.synthetic import orbit_cameras
+    from texgs_torch.utils.logger import get_logger
+
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    root = f"{work_dir}/golden_{seed}"
+    t0 = time.perf_counter()
+    make_dataset.main([f"{root}/scene", *GOLDEN_SCENE, "--device",
+                       device.type])
+    write_s = time.perf_counter() - t0
+    seeded(torch, seed)
+    ranges = {k: [0, None] for k in ("norm_range", "norm_smooth_range",
+                                     "opacity_reg_range")}
+    cfg1 = stage_cfg("configs/synthetic_smoke.yaml", f"{root}/s1",
+                     f"{root}/scene", 150, seed,
+                     train_cfg={"densify_from_iter": 20,
+                                "densification_interval": 50,
+                                "densify_until_iter": 120},
+                     loss_cfg=ranges)
+    _, scene, ev1, s1_s, l1 = counted_train(
+        torch, cfg1, {"raster": kr.raster_pairs,
+                      "raster_bwd": kr.raster_pairs_backward}, device)
+    check_launches("golden stage 1", l1, {"raster": 150, "raster_bwd": 150})
+    ck1 = f"{root}/s1/checkpoints/150"
+    extract_pcd(ck1, f"{root}/pcd", 512, device=device)
+
+    net = {"max_inverse_points": 2048,
+           "inv_uv_net_cfg.n_sample_points": 256,
+           "inv_uv_net_cfg.pre_mlp_cfg.hash_grid_cfg.n_levels": 4}
+    cfg2 = stage_cfg("configs/synthetic_uv_map.yaml", f"{root}/s2",
+                     f"{root}/scene", 120, seed,
+                     model_cfg=dict(net, init_from=ck1,
+                                    pcd_load_from=f"{root}/pcd.npy"))
+    model2, _, ev2, s2_s, l2 = counted_train(
+        torch, cfg2, {"raster": kr.raster_pairs, **hash_counters()}, device,
+        scene)
+    check_launches("golden stage 2", l2, {"raster": 1, "hash_encode": 120,
+                                          "hash_encode_bwd": 120})
+    # the UV map: on the unit sphere, and the inverse cycle in range
+    # (tests/test_pipeline_3stage.py:119-137)
+    with torch.no_grad():
+        xyz = model2.gauss["xyz"]
+        uv = model2.uv_net(xyz, model2.geo_emb)
+        norm_err = (torch.linalg.norm(uv, dim=1) - 1).abs().max().item()
+        cycle = torch.linalg.norm(xyz - model2.inv_uv_net(
+            uv, model2.geo_emb), dim=1).mean().item()
+        chess = model2.visual_step(0, 0, orbit_cameras(
+            1, radius=3.5, width=48, height=48)[0])["chess_image"]
+    if not norm_err <= 1e-4:
+        fail(f"golden stage 2: |uv| is 1 only to {norm_err:.2e}")
+    if not cycle < 2.0:
+        fail(f"golden stage 2: the inverse cycle error is {cycle}")
+    # both chess colours on the surface (:140-158)
+    chess = chess.cpu().numpy()
+    fg = chess.max(axis=0) > 0.2
+    rb = chess[0][fg] - chess[2][fg]
+    if not (chess.shape == (3, 48, 48) and np.isfinite(chess).all()
+            and fg.sum() > 50 and (rb > 0.1).any() and (rb < -0.1).any()):
+        fail("golden stage 2: the chess image lacks a colour (UVs not "
+             "mapped)")
+    ck2 = f"{root}/s2/checkpoints/120"
+
+    cfg3 = stage_cfg(
+        "configs/synthetic_texture.yaml", f"{root}/s3", f"{root}/scene", 240,
+        seed, train_cfg={"min_scale_reset_interval": 0},
+        model_cfg=dict(net, init_from=ck1, init_uv_map_from=ck2,
+                       **{"tex_cfg.resolution": 64, "tex_cfg.max_sh_degree": 1,
+                          "uvtex_m": m}),
+        optim_cfg={"gaussian_optim_range": [30, None], "tex_lr": 0.02},
+        loss_cfg={k: [30, None] for k in ("rgb_no_sh_range", "alpha_range",
+                                          "norm_smooth_range",
+                                          "inverse_range")})
+    # the untrained (zero-texture) baseline on the same scene (:201-209)
+    glog = get_logger("texgs_torch.smoke")
+    m0 = create_model(cfg3.model_cfg, device)
+    m0.bind_train_cfg(cfg3.train_cfg, cfg3.dataset_cfg.background)
+    m0.initialize(scene.scene_info.point_cloud, scene.cameras_extent)
+    m0.setup_optim(cfg3.optim_cfg)
+    ev0 = driver.visualize(None, 0, 60, m0, scene, glog)
+    del m0
+    stage3 = {"uvtex_fused": kf.fused_pairs,
+              "uvtex_fused_bwd": kf.fused_pairs_backward,
+              "tex_term": kt.tex_term, "tex_term_bwd": kt.tex_term_backward,
+              **hash_counters()}
+    model3, _, ev3, s3_s, l3 = counted_train(torch, cfg3, stage3, device,
+                                             scene)
+    # the inverse loss, which runs the hash grid, on iterations 31..240
+    check_launches("golden stage 3", l3, {
+        "uvtex_fused": 240, "uvtex_fused_bwd": 240, "tex_term": 240,
+        "tex_term_bwd": 240, "hash_encode": 210, "hash_encode_bwd": 210})
+    tex_max = model3.texture.abs().max().item()
+    # the kernel path's test renders against the dense oracle's: equal
+    # where no M-list was cut (tests/test_uvtex_raster.py's scan-vs-oracle
+    # tolerance: 0.5% of the values beyond 1e-4, none beyond 3e-2)
+    worst, n_off = 0.0, 0
+    with torch.no_grad():
+        for cam in scene.getTestCameras():
+            got = model3.render(cam)["render"]
+            model3.cfg["backend"] = "reference"
+            want = model3.render(cam)["render"]
+            model3.cfg["backend"] = "auto"
+            err = (got - want).abs()
+            worst = max(worst, err.max().item())
+            n_off += int((err > 1e-4).sum()) - err.numel() // 200
+    result = {"s1": (ev1["test"]["psnr"], ev1["test"]["ssim"], s1_s),
+              "s2": (ev2["test"]["psnr"], ev2["test"]["ssim"], s2_s),
+              "s3": (ev3["test"]["psnr"], ev3["test"]["ssim"], s3_s),
+              "ev0": (ev0["test"]["psnr"], ev0["test"]["ssim"], 0.0)}
+    log(f"[golden] seed {seed}, m = {m}: scene written in {write_s:.1f} s; "
+        + "; ".join(f"{k} test PSNR {p:.3f} dB SSIM {q:.4f} ({t:.1f} s)"
+                    for k, (p, q, t) in result.items())
+        + f"; UV norm err {norm_err:.2e}, cycle {cycle:.4f}; stage-3 test "
+        f"renders vs the oracle: max abs err {worst:.3e}; launches s1 {l1}, "
+        f"s2 {l2}, s3 {l3}")
+    s1, s3 = ev1["test"], ev3["test"]
+    gates = [
+        ("texture received a gradient", tex_max > 1e-3),
+        ("s3 test PSNR finite and > 10 dB",
+         math.isfinite(s3["psnr"]) and s3["psnr"] > 10.0),
+        ("s3 >= ev0 + 2.0 dB", s3["psnr"] >= ev0["test"]["psnr"] + 2.0),
+        (f"s1 >= {golden['stage1_test_psnr'] - golden['margin_db']:.3f} dB",
+         s1["psnr"] >= golden["stage1_test_psnr"] - golden["margin_db"]),
+        (f"s3 >= {golden['stage3_test_psnr'] - golden['margin_db']:.3f} dB",
+         s3["psnr"] >= golden["stage3_test_psnr"] - golden["margin_db"]),
+        (f"s3 SSIM >= "
+         f"{golden['stage3_test_ssim'] - golden['margin_ssim']:.4f}",
+         s3["ssim"] >= golden["stage3_test_ssim"] - golden["margin_ssim"]),
+        (f"s3 >= s1 - {golden['rel_margin_db']} dB",
+         s3["psnr"] >= s1["psnr"] - golden["rel_margin_db"]),
+        ("stage-3 test renders equal the dense oracle's",
+         worst <= 3e-2 and n_off <= 0),
+    ]
+    result["missed"] = [name for name, ok in gates if not ok]
+    return result
+
+
+def check_golden(seed, run):
+    if run["missed"]:
+        fail(f"the tiny 3-stage golden (seed {seed}) missed: "
+             + "; ".join(run["missed"]) + f" ({run})")
+
+
+def formats_phase(torch, device, work_dir):
+    """Phase 20 (see the module docstring): stage 1 from a COLMAP and from
+    a NeILF scene on disk (tests/test_pipeline_{colmap,neilf}.py).
+    Returns each format's test PSNR and seconds."""
+    from texgs_torch.data import colmap as cm
+    from texgs_torch.data import native
+    from texgs_torch.kernels import raster as kr
+    from texgs_torch.tools import make_dataset
+
+    if not native.available():
+        fail("the native IO library was not built (no C++ compiler)")
+    counters = {"raster": kr.raster_pairs,
+                "raster_bwd": kr.raster_pairs_backward}
+    densify = {"densify_from_iter": 20, "densification_interval": 50,
+               "densify_until_iter": 120}
+    # COLMAP scenes carry no alpha or normal: photometric only
+    losses = {
+        "colmap": {"lambda_alpha": 0.0, "lambda_norm": 0.0,
+                   "lambda_norm_smooth": 0.0},
+        "neilf": {k: [0, None] for k in ("norm_range", "norm_smooth_range",
+                                         "opacity_reg_range")}}
+    result = {}
+    for fmt, name in (("colmap", "colmap_synth"), ("neilf", "dtu_synth")):
+        root = f"{work_dir}/{fmt}"
+        t0 = time.perf_counter()
+        make_dataset.main([f"{root}/{name}", "--format", fmt, *FORMAT_SCENE,
+                           "--device", device.type])
+        write_s = time.perf_counter() - t0
+        seeded(torch, 0)
+        cfg = stage_cfg("configs/synthetic_smoke.yaml", f"{root}/s1",
+                        f"{root}/{name}", 150, train_cfg=densify,
+                        loss_cfg=losses[fmt])
+        _, scene, ev, train_s, launches = counted_train(torch, cfg, counters,
+                                                        device)
+        check_launches(f"{fmt} stage 1", launches,
+                       {"raster": 150, "raster_bwd": 150})
+        train, test = scene.getTrainCameras(), scene.getTestCameras()
+        # llffhold 8 over 16 COLMAP views; DTU's test indexes 6 and 13
+        if (len(train), len(test)) != (14, 2):
+            fail(f"{fmt}: {len(train)} train and {len(test)} test views")
+        for cam in train + test:
+            if tuple(cam.image.shape) != (3, 48, 48):
+                fail(f"{fmt}: a ground truth of {tuple(cam.image.shape)}")
+        if fmt == "neilf":
+            cam = train[0]
+            if cam.alpha_mask is None or cam.normal is None:
+                fail("neilf: the masks or normals did not reach the cameras")
+            # premultiplied: black where the mask is 0
+            if cam.image[:, cam.alpha_mask[0] < 0.5].abs().max().item() != 0:
+                fail("neilf: the ground truth is not masked")
+        else:
+            # the scene read through the native library equals the one the
+            # Python parsers read
+            sparse = f"{root}/{name}/sparse/0"
+            for fast, slow in (
+                    (native.read_images_binary(f"{sparse}/images.bin"),
+                     cm.read_images_binary(f"{sparse}/images.bin")),
+                    (native.read_cameras_binary(f"{sparse}/cameras.bin"),
+                     cm.read_cameras_binary(f"{sparse}/cameras.bin"))):
+                if fast is None or sorted(fast) != sorted(slow) or any(
+                        not all(np.array_equal(a, b) for a, b in
+                                zip(fast[k], slow[k])) for k in slow):
+                    fail("colmap: the native reader disagrees with the "
+                         "Python parser")
+            nat = native.read_points3d_binary(f"{sparse}/points3D.bin")
+            py = cm.read_points3d_binary(f"{sparse}/points3D.bin")
+            if not all(np.array_equal(a, b) for a, b in zip(nat, py)):
+                fail("colmap: the native points3D reader disagrees")
+        psnr = ev["test"]["psnr"]
+        log(f"[{fmt}] scene of 16 views written in {write_s:.1f} s; stage 1, "
+            f"150 iterations in {train_s:.1f} s: test PSNR {psnr:.3f} dB, "
+            f"SSIM {ev['test']['ssim']:.4f}; launches {launches}")
+        if not (math.isfinite(psnr) and psnr > 15.0):
+            fail(f"{fmt}: stage-1 test PSNR {psnr}")
+        result[fmt] = (psnr, train_s)
+    return result
+
+
+def prod_scene_phase(torch, device, work_dir, card):
+    """Phase 21 (see the module docstring): configs/prod_stage1.yaml's
+    checker_prod scene written at full width, read back and trained.
+    Returns the seconds of the write, the read and the iterations."""
+    from texgs_torch.config import load_config
+    from texgs_torch.data.scene import Scene
+    from texgs_torch.kernels import raster as kr
+    from texgs_torch.tools import make_dataset
+    from texgs_torch.utils.logger import get_logger
+
+    root = f"{work_dir}/checker_prod"
+    args = make_dataset.parse_args([root, *PROD_SCENE, "--device",
+                                    device.type])
+    t0 = time.perf_counter()
+    n_views = make_dataset.make_dataset(args)
+    write_s = time.perf_counter() - t0
+    cfg = load_config("configs/prod_stage1.yaml")
+    cfg.dataset_cfg.data_root_dir = root
+    seeded(torch, 0)
+    t0 = time.perf_counter()
+    scene = Scene(cfg.dataset_cfg, get_logger("texgs_torch.smoke"),
+                  f"{work_dir}/prod_s1", device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    train, test = scene.getTrainCameras(), scene.getTestCameras()
+    if (len(train), len(test)) != (args.views, args.test_views):
+        fail(f"checker_prod: {len(train)} train and {len(test)} test views")
+    # each ground truth read back against the writer's float render: the
+    # writer truncates rgb and alpha to 8 bits (as texgs's script), so the
+    # reader's composite rgb·a + bg·(1 - a), masked by alpha > 0.5, lies
+    # within 2/255 of the float one
+    cams, gt_view, _ = make_dataset.ground_truth(args)
+    bg = torch.as_tensor(cfg.dataset_cfg.background, dtype=torch.float32,
+                         device=device)[:, None, None]
+    worst = 0.0
+    for split, views, offset in (("train", train, 0),
+                                 ("test", test, args.views)):
+        for cam in views:
+            if (cam.width, cam.height) != (args.width, args.height):
+                fail(f"checker_prod: a {cam.width}x{cam.height} view")
+            out = gt_view(cams[offset + int(cam.image_name.split("_")[1])])
+            rgb = torch.as_tensor(out["rgb"], device=device).permute(2, 0, 1)
+            a = torch.as_tensor(out["alpha"], device=device)[None]
+            mask = (a > 0.5).float()
+            if not torch.equal(cam.alpha_mask, mask):
+                fail(f"checker_prod {split} {cam.image_name}: the mask "
+                     "read back differs")
+            want = (rgb * a + bg * (1 - a)) * mask
+            worst = max(worst, (cam.image - want).abs().max().item())
+    if not worst <= 2.0 / 255 + 1e-6:
+        fail(f"checker_prod: a ground truth read back is {worst} off")
+    bytes_gt = sum(sum(t.numel() * 4 for t in (c.image, c.alpha_mask,
+                                               c.normal))
+                   for c in train + test)
+
+    cfg.work_dir = f"{work_dir}/prod_s1"
+    cfg.debug = False
+    cfg.train_cfg.update(num_iterations=PROD_ITERS,
+                         visual_iters=[PROD_ITERS], ckpt_iters=[])
+    counters = {"raster": kr.raster_pairs,
+                "raster_bwd": kr.raster_pairs_backward}
+    model, _, ev, train_s, launches = counted_train(torch, cfg, counters,
+                                                    device, scene)
+    check_launches("checker_prod stage 1", launches,
+                   {"raster": PROD_ITERS, "raster_bwd": PROD_ITERS})
+    psnr = ev["test"]["psnr"]
+    if not math.isfinite(psnr):
+        fail(f"checker_prod: stage-1 test PSNR {psnr}")
+    log(f"[prod scene] checker_prod ({model.n_points} Gaussians, "
+        f"{n_views} views of {args.width}x{args.height}): written in {write_s:.1f} s, read "
+        f"back in {read_s:.1f} s ({bytes_gt / 1e9:.3f} GB of ground truth "
+        f"on the device, worst pixel {worst * 255:.3f}/255 off the float "
+        f"render), {PROD_ITERS} iterations of prod_stage1.yaml with the "
+        f"evaluation in {train_s:.1f} s: test PSNR {psnr:.3f} dB; launches "
+        f"{launches}; {card}")
+    return write_s, read_s, train_s
+
+
 def check_kernel_2(torch, got, want):
     """Kernel 2 against its plain version, pixel by pixel, as check_kernel_a
     holds kernel A's M-lists: a pixel is off if a slot value lies beyond
@@ -1881,8 +2314,18 @@ def build_model(torch, device):
     return model, loss.item()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--golden-seeds", default=None,
+                        help="comma-separated training seeds: run only the "
+                             "golden phase, once for each")
+    parser.add_argument("--golden-m", type=int, default=GOLDEN_M,
+                        help="stage 3's M-list length in those runs")
+    args = parser.parse_args(argv)
 
     # ---------------------------------------------------------- 1. device
     if not torch.cuda.is_available():
@@ -1905,6 +2348,19 @@ def main() -> int:
     log(f"[device] {kind}, {torch.cuda.device_count()} card(s); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     log(f"[device] nvidia-smi: {card}")
+    if args.golden_seeds is not None:
+        with tempfile.TemporaryDirectory() as work_dir:
+            runs = [(seed, golden_phase(torch, device, f"{work_dir}/{i}",
+                                        seed, args.golden_m))
+                    for i, seed in enumerate(
+                        map(int, args.golden_seeds.split(",")))]
+        log(json.dumps({"golden": runs, "m": args.golden_m, "card": card}))
+        for seed, run in runs:
+            check_golden(seed, run)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -2097,6 +2553,10 @@ def main() -> int:
         del stage1, s1_views
         torch.cuda.empty_cache()
         driver_phase(work_dir, device)
+        check_golden(0, golden_phase(torch, device, work_dir))
+        formats_phase(torch, device, work_dir)
+        prod_scene_phase(torch, device, work_dir, card)
+        torch.cuda.empty_cache()
         model, entries = two_kernel_phases(torch, device, sd0, cams, views,
                                            retextured, chess, render_ms,
                                            step_ms)

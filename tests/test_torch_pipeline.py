@@ -120,3 +120,19 @@ def test_every_checkpoint_loads_in_texgs(pipeline):
                      [("geo_emb", mine[part]["geo_emb"])]):
             np.testing.assert_array_equal(np.asarray(back[part][k]),
                                           np.asarray(v), err_msg=k)
+
+
+def test_stage3_writes_its_point_cloud(pipeline):
+    """texgs's driver writes ``pcds/{iter}.ply`` at each visual iteration
+    of every stage; the port's stage 3 writes the alive centres there, the
+    checkpoint's of the same iteration."""
+    from texgs_torch.io import checkpoint
+    from texgs_torch.io.ply import read_pcd
+
+    cfg = pipeline["cfgs"][2]
+    pcd = read_pcd(f"{cfg.work_dir}/pcds/{ITERS}.ply")
+    params = checkpoint.load(pipeline["ckpts"][2])[0]["params"]
+    n = int(params["n_alive"])
+    assert n == pipeline["models"][2].n_points
+    assert pcd.points.shape == (n, 3)
+    np.testing.assert_array_equal(pcd.points, params["xyz"][:n])

@@ -106,8 +106,7 @@ def test_resolve_backends():
     assert tuv.resolve_backends("fused", "textile") == "fused"
     assert tuv.resolve_backends("pallas", "auto") == "two_kernel"
     assert tuv.resolve_backends("scan", "xla") == "two_kernel"
-    with pytest.raises(NotImplementedError):
-        tuv.resolve_backends("reference")
+    assert tuv.resolve_backends("reference") == "reference"
     with pytest.raises(ValueError):
         tuv.resolve_backends("triton")
     with pytest.raises(ValueError):

@@ -1,14 +1,20 @@
-"""Scene container (port of texgs/data/scene.py for ``synthetic://`` roots).
+"""Scene container: dataset detection, cameras, extents (port of
+texgs/data/scene.py).
 
-Builds the cameras of a SceneInfo with texgs's resolution rules, shuffles
-them, and takes the NeRF++ extent.  Only the procedural ``synthetic://``
-dataset is ported; a ``data_root_dir`` on disk needs the COLMAP, Blender or
-NeILF readers, which are not ported yet (ROADMAP.md queue 1, the data
-readers slice) and raise ``NotImplementedError``.
+The data root picks the reader, as texgs's marker files do: a
+``synthetic://`` URI is the procedural scene, ``sparse/`` a COLMAP scene,
+``transforms_train.json`` a Blender one and ``inputs/sfm_scene.json`` a
+NeILF one.  The scene copies the initial cloud to ``input.ply`` and dumps
+the cameras as JSON, builds the cameras of each resolution scale with
+texgs's resolution rules (-1 caps the width at 1600 px), shuffles them and
+takes the NeRF++ extent.  Its uids are unique across the splits, and each
+camera's ground truth is staged on the scene's device once.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import random
 
 import numpy as np
@@ -16,7 +22,10 @@ import torch
 
 from texgs_torch.config import Cfg
 from texgs_torch.core.camera import Camera, make_camera, with_ground_truth
-from texgs_torch.data.readers import CameraInfo, SceneInfo
+from texgs_torch.data.readers import (CameraInfo, SceneInfo,
+                                      read_blender_scene, read_colmap_scene,
+                                      read_neilf_scene)
+from texgs_torch.utils.graphics import fov2focal
 
 
 def _resize(img: np.ndarray, resolution: tuple[int, int]) -> np.ndarray:
@@ -77,6 +86,22 @@ def load_camera(cfg: Cfg, uid: int, info: CameraInfo,
                              normal=staged(normal), depth=staged(depth))
 
 
+def camera_to_json(uid: int, info: CameraInfo) -> dict:
+    rt = np.zeros((4, 4))
+    rt[:3, :3] = info.R.transpose()
+    rt[:3, 3] = info.T
+    rt[3, 3] = 1.0
+    w2c = np.linalg.inv(rt)
+    return {
+        "id": uid, "img_name": info.image_name,
+        "width": info.width, "height": info.height,
+        "position": w2c[:3, 3].tolist(),
+        "rotation": [r.tolist() for r in w2c[:3, :3]],
+        "fy": fov2focal(info.FovY, info.height),
+        "fx": fov2focal(info.FovX, info.width),
+    }
+
+
 class Scene:
     scene_info: SceneInfo
 
@@ -88,17 +113,47 @@ class Scene:
         self.test_cameras: dict[float, list[Camera]] = {}
 
         root = str(cfg.data_root_dir)
-        if not root.startswith("synthetic://"):
-            raise NotImplementedError(
-                f"{root}: texgs_torch reads only synthetic:// scenes; the "
-                "COLMAP, Blender and NeILF readers are the data readers slice "
-                "of ROADMAP.md queue 1 (texgs/data/readers.py, colmap.py, "
-                "native.py)")
-        from texgs_torch.data.synthetic_scene import make_synthetic_scene_info
-
-        scene_info = make_synthetic_scene_info(root, cfg, debug=debug,
-                                               device=device)
+        if root.startswith("synthetic://"):
+            from texgs_torch.data.synthetic_scene import \
+                make_synthetic_scene_info
+            scene_info = make_synthetic_scene_info(root, cfg, debug=debug,
+                                                   device=device)
+        elif os.path.exists(os.path.join(root, "sparse")):
+            log.info("Found colmap folder, assuming Colmap data set!")
+            scene_info = read_colmap_scene(root, cfg.get_or("image_path", None),
+                                           cfg.eval, log=log, debug=debug)
+        elif os.path.exists(os.path.join(root, "transforms_train.json")):
+            log.info("Found transforms_train.json, assuming Blender data set!")
+            scene_info = read_blender_scene(root, cfg.background, cfg.eval,
+                                            log=log, debug=debug)
+        elif os.path.exists(os.path.join(root, "inputs/sfm_scene.json")):
+            log.info("Found sfm_scene.json, assuming NeILF data set!")
+            scene_info = read_neilf_scene(root, cfg.background, cfg.eval,
+                                          log=log, debug=debug)
+        else:
+            raise AssertionError(f"Could not recognize scene type at {root}")
         self.scene_info = scene_info
+
+        if not debug and cfg.save_init_pcd and scene_info.ply_path \
+                and os.path.exists(scene_info.ply_path):
+            with open(scene_info.ply_path, "rb") as src, \
+                    open(os.path.join(work_dir, "input.ply"), "wb") as dst:
+                dst.write(src.read())
+
+        if not debug and cfg.save_cameras:
+            def dump(cams, filename):
+                with open(os.path.join(work_dir, filename), "w") as f:
+                    json.dump([camera_to_json(i, c)
+                               for i, c in enumerate(cams)], f)
+            all_cams = []
+            if scene_info.test_cameras:
+                dump(scene_info.test_cameras, "test_cameras.json")
+                all_cams += scene_info.test_cameras
+            if scene_info.train_cameras:
+                dump(scene_info.train_cameras, "train_cameras.json")
+                all_cams += scene_info.train_cameras
+            dump(all_cams, "cameras.json")
+
         if cfg.shuffle:
             random.shuffle(scene_info.train_cameras)
             random.shuffle(scene_info.test_cameras)

@@ -2,8 +2,9 @@
 
 Binary-little-endian (and ascii, read only) vertex elements with float and
 uchar properties: the point clouds of the datasets, ``save_point_cloud``
-and ``extract_pcd``.  texgs's ``read_pcd`` first tries its native reader
-(texgs/data/native.py); the port reads with numpy alone.
+and ``extract_pcd``.  ``read_pcd`` first tries the native reader
+(data/native.py), as texgs's does, and parses in numpy where that one
+cannot.
 """
 
 from __future__ import annotations
@@ -105,7 +106,16 @@ def read_ply(path) -> dict[str, np.ndarray]:
 
 def read_pcd(path):
     """Read (points, colors, normals) as float arrays; colors in [0, 1]."""
+    from texgs_torch.data import native
     from texgs_torch.utils.graphics import BasicPointCloud
+
+    fast = native.read_ply_xyz(path)
+    if fast is not None:
+        pts, colors, normals = fast
+        return BasicPointCloud(
+            points=pts,
+            colors=colors if colors is not None else np.ones_like(pts) * 0.5,
+            normals=normals if normals is not None else np.zeros_like(pts))
 
     d = read_ply(path)
     pts = np.stack([d["x"], d["y"], d["z"]], axis=1).astype(np.float32)

@@ -14,7 +14,7 @@ import torch
 
 from texgs_torch.utils.sh import eval_sh
 from texgs_torch.utils.transforms import (build_covariance_packed,
-                                          rotation_channels)
+                                          rotation_channels, strip_symmetric)
 
 # Gaussians closer than this view-space depth are culled (3DGS convention).
 NEAR_CULL = 0.2
@@ -121,18 +121,24 @@ def project_gaussians(xyz, scaling, rotation, opacity, colors,
                       world_view, full_proj, campos,
                       width: int, height: int, tanfovx: float, tanfovy: float,
                       scaling_modifier: float = 1.0,
-                      ndc_offset=None) -> ProjectedGaussians:
+                      cov3d_precomp=None, ndc_offset=None) -> ProjectedGaussians:
     """Cull + project + conic/radius + normals.
 
     world_view/full_proj/campos are tensors on the Gaussians' device.
-    Culled Gaussians get radius 0 and opacity 0.  ``ndc_offset``: see
-    ``project_points``.  texgs's ``cov3d_precomp`` has no caller on the
-    ported paths and is not ported.
+    Culled Gaussians get radius 0 and opacity 0.  ``cov3d_precomp``: the
+    world covariances, (N, 3, 3) or packed (N, 6) upper triangle (xx, xy,
+    xz, yy, yz, zz), in place of the ones built from scaling and rotation
+    (which still give the normals).  ``ndc_offset``: see ``project_points``.
     """
     focal_x = width / (2.0 * tanfovx)
     focal_y = height / (2.0 * tanfovy)
 
-    cov3d = build_covariance_packed(scaling, rotation, scaling_modifier)
+    if cov3d_precomp is None:
+        cov3d = build_covariance_packed(scaling, rotation, scaling_modifier)
+    elif cov3d_precomp.dim() == 3:       # (N, 3, 3) full matrices
+        cov3d = strip_symmetric(cov3d_precomp)
+    else:                                # already packed (N, 6)
+        cov3d = cov3d_precomp
     means2d, depths = project_points(xyz, full_proj, width, height,
                                      ndc_offset)
     cov2d = compute_cov2d(xyz, cov3d, world_view, tanfovx, tanfovy,

@@ -23,7 +23,9 @@ M-list).  The blend and the M-lists take one of two paths
     plain version ``mlist_only_scan``).
 
 Either way kernels.tex_term computes the texture term from the M-lists
-(kernel B; plain version ``mlist_tex_term`` there).
+(kernel B; plain version ``mlist_tex_term`` there).  texgs's
+``reference`` backend is the dense oracle, ``rasterize_uvtex_reference``:
+every intersection of every pixel, no M-list, in plain torch.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from texgs_torch.kernels.binning import (build_pairs, grid_shape,
                                          with_tile_order)
 from texgs_torch.kernels.cubemap import sample_cubemap
 from texgs_torch.kernels.project import ProjectedGaussians
-from texgs_torch.kernels.reference import RasterOutput
+from texgs_torch.kernels.reference import (RasterOutput, compose,
+                                           dense_blend, depth_sorted_visible)
 from texgs_torch.kernels.tile_raster import (assemble_image, build_gauss_table,
                                              tiles_to_image)
 from texgs_torch.utils.sh import C0, eval_sh
@@ -168,27 +171,58 @@ def tail_tex_term(mlist: torch.Tensor, t_final: torch.Tensor,
     return tiles_to_image(C0 * w_tail[..., None] * tex, height, width)
 
 
+def rasterize_uvtex_reference(proj: ProjectedGaussians,
+                              tables: UVTexTables, texture: torch.Tensor,
+                              camera: Camera, bg: torch.Tensor,
+                              extra_attrs=None, normalize_depth: bool = True,
+                              filter_mode: str = "bilinear",
+                              row_block: int = 16) -> RasterOutput:
+    """Dense differentiable oracle (texgs uvtex_raster.py:159): the exact
+    texture term of every intersection, no M-list truncation.  texgs's
+    samples bilinear whatever the model's filter; this one takes
+    ``filter_mode``, the same at its default."""
+    order = depth_sorted_visible(proj)
+    cols = [proj.colors, proj.depths[:, None], proj.normals]
+    if extra_attrs is not None:
+        cols.append(extra_attrs)
+    channels = torch.cat(cols, dim=1)[order]
+    rows = build_uv_rows(tables)[order]
+    ax, by, c0 = torch.as_tensor(ray_constants(camera),
+                                 device=channels.device)
+
+    def texture_term(px, py, k0, k1, weights):
+        d = c0 + px[:, None] * ax + py[:, None] * by          # (P, 3)
+        uv = intersect_uv(d[:, None, :], rows[None, k0:k1])  # (P, K, 3)
+        tex = sample_cubemap(texture, uv.reshape(-1, 3), filter_mode)
+        return C0 * (weights[..., None] * tex.reshape(uv.shape)).sum(1)
+
+    # the texture term holds ~20 (pixel, Gaussian) temporaries at once
+    blended, t_final = dense_blend(proj, order, camera.height, camera.width,
+                                   channels, texture_term, row_block,
+                                   block=1 << 19)
+    n_extra = 0 if extra_attrs is None else extra_attrs.shape[1]
+    return compose(blended, t_final, bg, normalize_depth, n_extra)
+
+
 # texgs's backend names -> the port's path for the blend and the M-lists
 _PATHS = {"auto": "fused", "fused": "fused", "pallas": "two_kernel",
-          "scan": "two_kernel"}
+          "scan": "two_kernel", "reference": "reference"}
 TEX_BACKENDS = ("auto", "xla", "textile")
 
 
 def resolve_backends(backend: str = "auto", tex_backend: str = "auto"):
     """texgs's ``backend`` and ``tex_backend`` (texgs uvtex_raster.py:421)
-    -> the port's path for the blend and the M-lists, ``"fused"`` or
-    ``"two_kernel"``.
+    -> the port's path for the blend and the M-lists: ``"fused"``,
+    ``"two_kernel"`` or ``"reference"``.
 
-    ``auto`` and ``fused`` take the fused path (kernel A); ``pallas`` and
-    ``scan``, which texgs runs as two passes (its Pallas kernels or their
-    XLA twins), take the two-kernel path (kernels 1 and 2); ``reference``,
-    texgs's dense oracle, is not ported.  Every ``tex_backend`` takes the
-    exact texture term of kernel B: texgs's ``textile`` is a windowed
-    approximation of that same term (ROADMAP.md queue 2, item 4), and its
-    ``xla`` is the term itself."""
-    if backend == "reference":
-        raise NotImplementedError("backend 'reference' (texgs's dense "
-                                  "oracle) is not ported")
+    ``auto`` and ``fused`` take the fused path (kernel A) on every device
+    (texgs's ``auto`` takes its oracle on the CPU for N <= 4096); ``pallas``
+    and ``scan``, which texgs runs as two passes (its Pallas kernels or
+    their XLA twins), take the two-kernel path (kernels 1 and 2);
+    ``reference`` takes the dense oracle, ``rasterize_uvtex_reference``.
+    Every ``tex_backend`` takes the exact texture term of kernel B: texgs's
+    ``textile`` is a windowed approximation of that same term (ROADMAP.md
+    queue 2, item 4), and its ``xla`` is the term itself."""
     if backend not in _PATHS:
         raise ValueError(f"unknown backend {backend!r}; one of "
                          f"{sorted(_PATHS)}")
@@ -208,8 +242,9 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
 
     backend, tex_backend: texgs's names (``resolve_backends``): the fused
     path (kernel A) for ``auto`` and ``fused``, the two-kernel path
-    (kernels 1 and 2) for ``pallas`` and ``scan``; kernel B's exact
-    texture term for every ``tex_backend``.
+    (kernels 1 and 2) for ``pallas`` and ``scan``, the dense oracle for
+    ``reference`` (``m`` and ``m_tail`` then have no part); kernel B's
+    exact texture term for every ``tex_backend``.
     proj must carry zero colors (the base SH residual is injected here).
     with_no_sh: also return ``image_no_sh``, the texture-only image a
     second rasterization at active_sh_degree=0 would give.  The
@@ -235,6 +270,10 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
     tables = build_uvtex_tables(xyz, scaling, rotation, uvs, grad_uvs,
                                 torch.as_tensor(camera.camera_center,
                                                 device=xyz.device))
+    if path == "reference":
+        out = rasterize_uvtex_reference(proj, tables, texture, camera, bg,
+                                        extra_attrs, filter_mode=filter_mode)
+        return _with_no_sh(out, with_no_sh, append_ns)
     height, width = camera.height, camera.width
     pairs = build_pairs(proj.means2d, proj.depths, proj.radii, height, width)
     table = build_gauss_table(proj, extra_attrs)
@@ -257,6 +296,12 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
     out = RasterOutput(image=base.image + tex_img, depth=base.depth,
                        norm=base.norm, alpha=base.alpha, extra=base.extra,
                        n_pairs=pairs.n_pairs, overflowed=pairs.overflowed)
+    return _with_no_sh(out, with_no_sh, append_ns)
+
+
+def _with_no_sh(out: RasterOutput, with_no_sh: bool,
+                append_ns: bool) -> RasterOutput:
+    """The texture-only image from the blended SH channels."""
     if not with_no_sh:
         return out
     if not append_ns:

@@ -153,8 +153,7 @@ def train(cfg: Cfg, log, tb_writer=None, scene=None, model=None,
                                      iteration)
             tb_writer.add_scalar("iter_time", it_time * 1000.0, iteration)
 
-        if (iteration in visual_iters and not debug
-                and hasattr(model, "save_point_cloud")):
+        if iteration in visual_iters and not debug:
             os.makedirs(os.path.join(cfg.work_dir, "pcds"), exist_ok=True)
             model.save_point_cloud(
                 os.path.join(cfg.work_dir, "pcds", f"{iteration}.ply"))

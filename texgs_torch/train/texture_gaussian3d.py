@@ -384,6 +384,13 @@ class TextureGaussian3D:
     def n_points(self) -> int:
         return 0 if self.gauss is None else self.gauss["xyz"].shape[0]
 
+    def save_point_cloud(self, path: str) -> None:
+        """The alive Gaussians' centres as a PLY (texgs's
+        ``save_point_cloud``, written at each visual iteration)."""
+        from texgs_torch.io.ply import write_ply_xyz
+
+        write_ply_xyz(path, self.gauss["xyz"].detach().cpu().numpy())
+
     # ----------------------------------------------------- texture tools
     @torch.no_grad()
     def sphere_map(self, resolution=(512, 1024)) -> torch.Tensor:

@@ -11,7 +11,8 @@ Per iteration, four gated losses (texgs :154-211):
   Lpatch   -- one-directional chamfer of a directional cap's samples;
   Linv2    -- sphere cycle |uv(inv(s)) - s|^2.
 The Gaussians are frozen, so each camera's depth and alpha are rendered
-once (kernel 1) and cached by (uid, image_name).  The step takes its random
+once (kernel 1; the dense oracle with ``model_cfg.backend: reference``)
+and cached by (uid, image_name).  The step takes its random
 draws as arguments (``draws``): ``compute_loss`` draws them from the
 model's generator where texgs derives them from ``jax.random`` keys, so a
 test can hand the port texgs's draws.  Every inverse-net input of a step
@@ -175,7 +176,8 @@ class UVMapGaussian3D:
                          opacity=torch.sigmoid(g["opacity"]),
                          scaling=torch.exp(g["scaling"]), rotation=rot,
                          override_color=torch.zeros_like(g["xyz"]),
-                         bg_color=self.bg)
+                         bg_color=self.bg,
+                         backend=self.cfg.get_or("backend", "auto"))
             self._depth_alpha_cache[key] = (out["depth"], out["alpha"],
                                             out["norm"], out["render"])
         return self._depth_alpha_cache[key]

@@ -33,3 +33,11 @@ def build_covariance_packed(scaling: torch.Tensor, rotation: torch.Tensor,
     yz = s0 * r10 * r20 + s1 * r11 * r21 + s2 * r12 * r22
     zz = s0 * r20 * r20 + s1 * r21 * r21 + s2 * r22 * r22
     return torch.stack([xx, xy, xz, yy, yz, zz], dim=-1)
+
+
+def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
+    """(N, 3, 3) symmetric -> (N, 6) packed upper triangle
+    (xx, xy, xz, yy, yz, zz)."""
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+                        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]],
+                       dim=-1)
