@@ -83,8 +83,12 @@ one card.  Phases, in order; any failure exits non-zero:
                 step under torch.profiler (its device launches);
  15. driver -- driver.train through the port's command line on
                 configs/synthetic_smoke.yaml cut to 150 iterations
-                (densification at 100), then configs/synthetic_uv_map.yaml
-                for 50 iterations from its checkpoint; each stage's test PSNR;
+                (densification at 100) with --profile_dir (the trace of
+                iterations 100-110 must hold device events of kernels 1 and
+                1'), then configs/synthetic_uv_map.yaml for 50 iterations
+                from its checkpoint; each stage's test PSNR; then a
+                --debug --debug_nans run of DRIVER_NAN_ITERS stage-1
+                iterations (anomaly mode) with a finite test PSNR;
  16. two-kernel render -- the model of phase 3 with model_cfg.backend
                 pallas (kernel 1 blends, kernel 2 writes the M-lists):
                 kernels 2 and 1 (F = 10) against their plain versions on
@@ -136,7 +140,19 @@ one card.  Phases, in order; any failure exits non-zero:
                 written, read back through Scene (each ground truth
                 against the writer's float render, to 8-bit
                 quantisation) and trained 20 iterations through
-                driver.train with an evaluation; the seconds of each.
+                driver.train with an evaluation; the seconds of each;
+ 22. measure -- the tools of measurement: python -m
+                texgs_torch.tools.verify_compiled at its defaults (100,000
+                Gaussians, 800x600; kernels 1, 1', 2, 2', A, A', B, B'
+                against the plain twin through whole renders) as a process
+                of its own, which must print ok and compiled; python -m
+                texgs_torch.tools.bench, whose two metric lines
+                (stage3_step_ms, then rays_per_s_fwd_bwd_cuda) must be
+                finite and positive with mfu_pct and hbm_util_pct in
+                (0, 100]; in this process bench_stage3.measure must launch
+                A, A', B, B', K5' and K5'' once a step and the bench's
+                stage-1 step 1 and 1' once a step; the roofline tables of
+                both steps.
 
 The line before the last is a JSON object with one entry per kernel
 (eleven); the last line is {"ok": true, "device": {...}}.
@@ -190,8 +206,6 @@ MODEL_CFG = {
     "geo_emb_dim": 128,
 }
 
-H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
-H100_F32_FLOPS = 67e12       # f32 outside the tensor cores
 # GPU cycles the stream spins before a queued timing (about 2 ms)
 QUEUE_CYCLES = 4_000_000
 # f32 operations of kernel A per evaluated (pixel, pair) besides the
@@ -277,6 +291,10 @@ STAGE2_LOSS_CFG = {"lambda_inverse": 1.0, "inverse_range": [0, None],
                    "lambda_inverse2": 1.0, "inverse_range2": [0, None]}
 DRIVER_S1_ITERS = 150
 DRIVER_S2_ITERS = 50
+DRIVER_NAN_ITERS = 20
+# timed steps of the bench's stage-3 and stage-1 steps whose launches
+# phase 22 counts in this process
+MEASURE_ITERS = 3
 # the tools phase's synthetic://sphere scene
 TOOLS_POINTS = 50_000
 TOOLS_VIEWS = 8
@@ -427,7 +445,10 @@ def nbytes(*ts):
 
 
 def bound(n_bytes, n_ops):
-    """(bound ms, what bounds it) on the H100 SXM's data-sheet rates."""
+    """(bound ms, what bounds it) on the H100 SXM's data-sheet rates (the
+    peaks of texgs_torch/tools/roofline.py)."""
+    from texgs_torch.tools.roofline import H100_BYTES_PER_S, H100_F32_FLOPS
+
     t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, n_ops / H100_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -461,12 +482,10 @@ def main_path_kernel_args(model, cam):
 
 def plain_render(model, cam):
     """model.render(cam) with every kernel wrapper swapped for its plain
-    PyTorch version."""
-    from texgs_torch.kernels import tex_term as kt
-    from texgs_torch.kernels import uvtex_fused as kf
+    PyTorch version (verify_compiled's twin)."""
+    from texgs_torch.tools.verify_compiled import plain_kernels
 
-    with swapped(kf, "fused_pairs", kf.mlist_scan), \
-            swapped(kt, "tex_term", kt.mlist_tex_term):
+    with plain_kernels():
         return model.render(cam)
 
 
@@ -1413,7 +1432,7 @@ def driver_phase(work_dir, device):
     from texgs_torch.tools.extract_pcd import extract_pcd
     from texgs_torch.train.__main__ import main as train_main
 
-    def run(config, run_name, n_iter, **edits):
+    def cut(config, run_name, n_iter, **edits):
         cfg = load_config(config)
         cfg.train_cfg.update(num_iterations=n_iter, visual_iters=[n_iter],
                              ckpt_iters=[n_iter])
@@ -1421,9 +1440,13 @@ def driver_phase(work_dir, device):
             cfg[section].update(values)
         path = f"{work_dir}/{run_name}.yaml"
         dump_config(cfg, path)
+        return path
+
+    def run(config, run_name, n_iter, flags=(), **edits):
+        path = cut(config, run_name, n_iter, **edits)
         t0 = time.perf_counter()
         _, _, ev = train_main([path, "--workspace", work_dir, "--run_name",
-                               run_name, "--device", str(device)])
+                               run_name, "--device", str(device), *flags])
         log(f"[driver] {run_name} ({config}): {n_iter} iterations in "
             f"{time.perf_counter() - t0:.1f} s, test PSNR "
             f"{ev['test']['psnr']:.2f} dB, train PSNR "
@@ -1432,17 +1455,60 @@ def driver_phase(work_dir, device):
                               f"{n_iter}.npz"))[-1]
         return ev["test"]["psnr"], ck[:-len(".npz")]
 
-    # cut to DRIVER_S1_ITERS iterations, densifying at 100
+    # cut to DRIVER_S1_ITERS iterations, densifying at 100, traced over
+    # iterations 100-110
+    trace_dir = f"{work_dir}/s1_trace"
     psnr1, ck1 = run("configs/synthetic_smoke.yaml", "s1", DRIVER_S1_ITERS,
+                     flags=("--profile_dir", trace_dir),
                      train_cfg={"densify_from_iter": 50},
                      optim_cfg={"position_lr_max_steps": DRIVER_S1_ITERS})
     if not math.isfinite(psnr1):
         fail(f"the driver's stage-1 test PSNR is {psnr1}")
+    check_trace(trace_dir)
     extract_pcd(ck1, f"{work_dir}/s1_pcd", 4096, device=device)
     psnr2, _ = run("configs/synthetic_uv_map.yaml", "s2", DRIVER_S2_ITERS,
                    model_cfg={"init_from": ck1,
                               "pcd_load_from": f"{work_dir}/s1_pcd.npy"})
+
+    # a debug run under autograd's anomaly mode: a backward that made NaN
+    # would raise
+    path = cut("configs/synthetic_smoke.yaml", "s1_nans", DRIVER_NAN_ITERS)
+    t0 = time.perf_counter()
+    _, _, ev = train_main([path, "--debug", "--debug_nans", "--device",
+                           str(device)])
+    psnr_nans = ev["test"]["psnr"]
+    log(f"[driver] --debug --debug_nans: {DRIVER_NAN_ITERS} stage-1 "
+        f"iterations in {time.perf_counter() - t0:.1f} s, test PSNR "
+        f"{psnr_nans:.2f} dB")
+    if not math.isfinite(psnr_nans):
+        fail(f"the --debug_nans run's test PSNR is {psnr_nans}")
     return psnr1, psnr2
+
+
+def check_trace(trace_dir):
+    """The driver's trace of iterations 100-110 must exist and hold device
+    events of kernels 1 and 1' (their CUDA functions raster_fwd and
+    raster_bwd).  The names are asked for, not counts: the profiler drops
+    an event now and then."""
+    import glob
+    import os
+
+    files = glob.glob(f"{trace_dir}/*.json")
+    if len(files) != 1:
+        fail(f"the driver's --profile_dir holds {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {name: sum(name in k for k in kernels)
+             for name in ("raster_fwd<", "raster_bwd<")}
+    log(f"[driver] profiler trace {os.path.basename(files[0])}: "
+        f"{os.path.getsize(files[0]) / 1e6:.1f} MB, {len(events)} events, "
+        f"{len(kernels)} device kernels; kernel 1 (raster_fwd) "
+        f"{found['raster_fwd<']}, kernel 1' (raster_bwd) "
+        f"{found['raster_bwd<']}")
+    if not all(found.values()):
+        fail("the driver's profiler trace holds no device event of kernel "
+             f"1 or 1': {found}")
 
 
 GOLDEN = "tests/goldens/pipeline_3stage.json"
@@ -2278,6 +2344,92 @@ def tools_phase(torch, device, model, work_dir):
         f"{frame_s:.3f} s ({int((frame.sum(-1) > 0).sum())} pixels lit)")
 
 
+def run_tool(module, log_path):
+    """`python -m module` from the repository root, as a process of its
+    own, its output kept in log_path.  Returns (its stdout lines, its
+    seconds); fails if it exits non-zero."""
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module],
+                          cwd=str(Path(__file__).resolve().parent),
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    Path(log_path).write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"{module} exited {proc.returncode}: "
+             + (proc.stdout + proc.stderr)[-3000:])
+    return proc.stdout.splitlines(), seconds
+
+
+def measure_phase(torch, device, work_dir):
+    """Phase 22 (see the module docstring)."""
+    from texgs_torch.kernels import raster as kr
+    from texgs_torch.kernels import tex_term as kt
+    from texgs_torch.kernels import uvtex_fused as kf
+    from texgs_torch.nets import hash_encode as ke
+    from texgs_torch.nets import hash_gather as kg
+    from texgs_torch.tools import bench, bench_stage3, roofline
+
+    lines, seconds = run_tool("texgs_torch.tools.verify_compiled",
+                              f"{work_dir}/verify.log")
+    verdict = json.loads(lines[-1])
+    log(f"[measure] verify_compiled in {seconds:.1f} s: {json.dumps(verdict)}")
+    if not (verdict["ok"] is True and verdict["compiled"] is True):
+        fail("verify_compiled's verdict is not ok and compiled")
+
+    lines, seconds = run_tool("texgs_torch.tools.bench",
+                              f"{work_dir}/bench.log")
+    metrics = [json.loads(line) for line in lines if line.startswith("{")]
+    log(f"[measure] bench in {seconds:.1f} s:")
+    for m in metrics:
+        log(f"  {json.dumps(m)}")
+    if [m["metric"] for m in metrics] != ["stage3_step_ms",
+                                          "rays_per_s_fwd_bwd_cuda"]:
+        fail(f"bench printed the metrics {[m['metric'] for m in metrics]}")
+    for m in metrics:
+        if not (math.isfinite(m["value"]) and m["value"] > 0
+                and 0 < m["mfu_pct"] <= 100 and 0 < m["hbm_util_pct"] <= 100):
+            fail(f"bench line out of range: {m}")
+
+    # the launches of the bench's steps, in this process
+    counters = {"A": kf.fused_pairs, "A'": kf.fused_pairs_backward,
+                "B": kt.tex_term, "B'": kt.tex_term_backward,
+                "K5'": ke.hash_encode, "K5''": ke.hash_encode_backward,
+                "K5": kg.hash_gather, "1": kr.raster_pairs,
+                "1'": kr.raster_pairs_backward}
+    for fn in counters.values():
+        fn.launches = 0
+    dt3, aux3 = bench_stage3.measure(iters=MEASURE_ITERS, device=device)
+    steps3 = 2 + MEASURE_ITERS
+    got3 = {k: counters[k].launches for k in counters}
+    for fn in counters.values():
+        fn.launches = 0
+    dt1, aux1 = bench.measure_stage1(iters=MEASURE_ITERS, device=device)
+    steps1 = 1 + MEASURE_ITERS
+    got1 = {k: counters[k].launches for k in counters}
+    log(f"[measure] bench_stage3.measure: {steps3} steps, median "
+        f"{dt3 * 1e3:.3f} ms (spread {aux3['spread_ms']}), launches {got3}")
+    log(f"[measure] bench stage-1 step: {steps1} steps, median "
+        f"{dt1 * 1e3:.3f} ms (spread {aux1['spread_ms']}), launches {got1}")
+    want3 = {k: (steps3 if k in ("A", "A'", "B", "B'", "K5'", "K5''") else 0)
+             for k in counters}
+    want1 = {k: (steps1 if k in ("1", "1'") else 0) for k in counters}
+    if got3 != want3 or got1 != want1:
+        fail(f"the bench's steps launched {got3} and {got1}, expected "
+             f"{want3} and {want1}")
+    for what, comps, dt in (
+            ("stage-1", roofline.stage1_counts(aux1["n"], aux1["n_pairs"],
+                                              aux1["width"], aux1["height"]),
+             dt1),
+            ("stage-3", roofline.stage3_counts(
+                aux3["n"], aux3["n_pairs"], aux3["width"], aux3["height"],
+                tex_res=aux3["tex_res"]), dt3)):
+        log(f"[measure] roofline of the {what} step at this run's pair "
+            f"count: {json.dumps(roofline.summarize(comps, dt))}")
+        log(roofline.table(comps))
+
+
 def build_model(torch, device):
     from texgs_torch.config import Cfg
     from texgs_torch.core.state import init_from_pcd
@@ -2564,6 +2716,9 @@ def main(argv=None) -> int:
         del views, retextured
         torch.cuda.empty_cache()
         tools_phase(torch, device, model, work_dir)
+        del model
+        torch.cuda.empty_cache()
+        measure_phase(torch, device, work_dir)
     log(f"[launches] device launches of one step under torch.profiler: "
         f"stage 3 {step3_launches}, stage 2 {step2_launches}")
     log(card)

@@ -1542,3 +1542,50 @@ def test_mlist_kernels_dead_nan(cuda_device):
     assert bool(torch.isfinite(d_table).all()) and bool(torch.isfinite(d_uv).all())
     assert not bool(d_table[5:].any()) and not bool(d_uv[5:].any())
     assert bool(d_table[:5, :6].any()) and bool(d_uv[:5, :12].any())
+
+
+def _small_verifier(monkeypatch):
+    """verify_compiled at 20,000 Gaussians, 128x128 and a 64^2 cubemap."""
+    from texgs_torch.tools import verify_compiled
+
+    for k, v in (("VERIFY_N", "20000"), ("VERIFY_W", "128"),
+                 ("VERIFY_H", "128"), ("VERIFY_TEX", "64")):
+        monkeypatch.setenv(k, v)
+    return verify_compiled
+
+
+@pytest.mark.cuda
+def test_verifier_on_the_card(cuda_device, monkeypatch, capsys):
+    """Every kernel against its plain twin through whole renders: ok, and
+    compiled."""
+    import json
+
+    verify_compiled = _small_verifier(monkeypatch)
+    assert verify_compiled.main(["--device", "cuda"]) == 0
+    verdict = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert verdict["ok"] is True and verdict["compiled"] is True
+    for check in ("raster", "uvtex", "uvtex_fused", "tex_term"):
+        assert verdict[check]["ok"] is True
+
+
+@pytest.mark.cuda
+def test_verifier_refuses_a_corrupted_tile_row_on_the_card(cuda_device,
+                                                           monkeypatch):
+    """Kernel B's output plus 0.05 in one tile row of the image: the
+    verifier's fused-path check fails."""
+    from texgs_torch.kernels import tex_term as kt
+
+    verify_compiled = _small_verifier(monkeypatch)
+    clean = kt.tex_term
+
+    def corrupted(*args):
+        img = clean(*args)
+        rows = torch.arange(img.shape[1], device=img.device) // 16 == 1
+        return img + torch.where(rows[:, None], 0.05, 0.0)
+    corrupted.launches = 0  # kernel B's wrapper counts through this name
+    monkeypatch.setattr(kt, "tex_term", corrupted)
+    ok, results = verify_compiled.verify_uvtex(20000, 128, 128, 64,
+                                               device=cuda_device,
+                                               backend="auto")
+    assert not ok
+    assert results["fwd_image"] > verify_compiled.REL_TOL_FWD

@@ -41,17 +41,19 @@ CHUNK = 64  # pairs of each tile the plain version takes per step
 NO_GRAD_COLS = (ROW_LOGOP, COL_ANCHOR, COL_ANCHOR + 1)
 
 
-def raster_scan(table: torch.Tensor, pairs: PairList, gx: int):
+def raster_scan(table: torch.Tensor, pairs: PairList, gx: int,
+                tile0: int = 0):
     """Plain version of kernel 1.
 
     table: (N, 16 + E) from tile_raster.build_gauss_table.  Returns
     (tiles_out (T, PIX, F), t_final (T, PIX), n_eval (T, PIX) int32: the
     pairs of its tile each pixel evaluated, the one that stopped it
-    included), F = 7 + E."""
+    included), F = 7 + E.  tile0: the frame tile that the pair list's
+    first tile is (a band of whole tile rows; 0 for a whole frame)."""
     device = table.device
     n_tiles = pairs.tile_counts.shape[0]
     n_f = table.shape[1] - TABLE_FIXED + N_FIXED_F
-    tiles = torch.arange(n_tiles, device=device)
+    tiles = torch.arange(tile0, tile0 + n_tiles, device=device)
     tile_x = ((tiles % gx) * TILE).to(torch.float32)[:, None]
     tile_y = ((tiles // gx) * TILE).to(torch.float32)[:, None]
 

@@ -41,9 +41,11 @@ KERNEL_F = (7, 10)
 CHUNK = 64  # pairs of each tile the plain version takes per step
 
 
-def _tile_rays(rays: np.ndarray, n_tiles: int, gx: int, device):
-    """Per-tile corner (tile_x, tile_y) and the (T, PIX, 3) pixel rays."""
-    tiles = torch.arange(n_tiles, device=device)
+def _tile_rays(rays: np.ndarray, n_tiles: int, gx: int, device,
+               tile0: int = 0):
+    """Per-tile corner (tile_x, tile_y) and the (T, PIX, 3) pixel rays of
+    the frame tiles tile0 .. tile0 + n_tiles - 1."""
+    tiles = torch.arange(tile0, tile0 + n_tiles, device=device)
     tile_x = ((tiles % gx) * TILE).to(torch.float32)
     tile_y = ((tiles // gx) * TILE).to(torch.float32)
     basis = tile_basis(device)
@@ -55,7 +57,7 @@ def _tile_rays(rays: np.ndarray, n_tiles: int, gx: int, device):
 
 
 def mlist_scan(table: torch.Tensor, uv_rows: torch.Tensor, pairs: PairList,
-               rays: np.ndarray, gx: int, m: int):
+               rays: np.ndarray, gx: int, m: int, tile0: int = 0):
     """Plain version of kernel A.
 
     table: (N, 16 + E) from tile_raster.build_gauss_table; uv_rows:
@@ -63,11 +65,13 @@ def mlist_scan(table: torch.Tensor, uv_rows: torch.Tensor, pairs: PairList,
     Returns (tiles_out (T, PIX, F), t_final (T, PIX), mlist
     (T, PIX, m, 4) of [w, uv] slots, n_eval (T, PIX) int32: the pairs of
     its tile each pixel evaluated, the one that stopped it included).
+    tile0: the frame tile that the pair list's first tile is (a band of
+    whole tile rows; 0 for a whole frame).
     """
     device = table.device
     n_tiles = pairs.tile_counts.shape[0]
     n_f = table.shape[1] - TABLE_FIXED + N_FIXED_F
-    tile_x, tile_y, d = _tile_rays(rays, n_tiles, gx, device)
+    tile_x, tile_y, d = _tile_rays(rays, n_tiles, gx, device, tile0)
 
     out = torch.zeros((n_tiles, PIX, n_f), device=device)
     t_buf = torch.ones((n_tiles, PIX), device=device)

@@ -46,11 +46,12 @@ def _without_channels(table: torch.Tensor) -> torch.Tensor:
 
 
 def mlist_only_scan(table: torch.Tensor, uv_rows: torch.Tensor,
-                    pairs: PairList, rays: np.ndarray, gx: int, m: int):
+                    pairs: PairList, rays: np.ndarray, gx: int, m: int,
+                    tile0: int = 0):
     """Plain version of kernel 2: the M-lists (T, PIX, m, 4) of
-    ``uvtex_fused.mlist_scan``."""
+    ``uvtex_fused.mlist_scan`` (tile0 as there)."""
     return mlist_scan(_without_channels(table), uv_rows, pairs, rays, gx,
-                      m)[2]
+                      m, tile0)[2]
 
 
 def mlist_only_scan_vjp(table: torch.Tensor, uv_rows: torch.Tensor,

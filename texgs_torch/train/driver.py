@@ -4,13 +4,17 @@
 Random viewpoint order, EMA-loss progress reports, periodic ``visualize``
 with L1 / PSNR / SSIM on the test and some train cameras, point-cloud dumps
 and checkpoints in texgs's schema, and TensorBoard scalars and images
-through tensorboardX where it is installed.  texgs's TPU profiler hooks and
-its host-memory watchdog for the remote TPU are not ported; the port's
+through tensorboardX where it is installed.  With ``cfg.profile_dir`` a
+``torch.profiler`` trace of iterations PROFILE_FIRST..PROFILE_LAST (CPU
+activity, and the card's where there is one) goes into that directory as
+a Chrome trace.  Every 250 iterations the loop collects cyclic garbage
+and reads the host's resident memory, logged every 1,000.  The port's
 models validate every step when it returns, so there is no ``flush``.
 """
 
 from __future__ import annotations
 
+import gc
 import os
 import random
 import time
@@ -22,6 +26,46 @@ from texgs_torch.config import Cfg
 from texgs_torch.io import checkpoint as ckpt
 from texgs_torch.losses import l1_loss, ssim_loss
 from texgs_torch.utils.metrics import psnr
+
+# the iterations a cfg.profile_dir trace covers (texgs's 100..110)
+PROFILE_FIRST = 100
+PROFILE_LAST = 110
+
+
+def _host_rss_gib() -> float:
+    """The process's resident host memory in GiB (0.0 where
+    /proc/self/statm cannot be read)."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+    except (OSError, IndexError, ValueError):
+        return 0.0
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2 ** 30
+
+
+def start_profile(device):
+    """A running torch.profiler over CPU activity, and CUDA activity when
+    the model is on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof, profile_dir, log) -> str:
+    """Stops ``prof`` and writes its Chrome trace into ``profile_dir``;
+    returns the file's path."""
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir,
+                        f"trace_{PROFILE_FIRST}_{PROFILE_LAST}.json")
+    prof.export_chrome_trace(path)
+    log.info(f"profiler trace written to {path}")
+    return path
 
 
 def tb_writer_for(work_dir, debug):
@@ -130,6 +174,8 @@ def train(cfg: Cfg, log, tb_writer=None, scene=None, model=None,
     last_eval = None
     t_start = t_last_ckpt = time.time()
     ckpt_wall_s = 60.0 * float(cfg.train_cfg.get_or("ckpt_wall_minutes", 10))
+    profile_dir = cfg.get_or("profile_dir", None)
+    prof = None
 
     for iteration in range(start_iteration + 1, end_iteration + 1):
         if not pool:
@@ -137,12 +183,22 @@ def train(cfg: Cfg, log, tb_writer=None, scene=None, model=None,
         viewpoint = (pool.pop(0) if debug
                      else pool.pop(random.randint(0, len(pool) - 1)))
 
+        if profile_dir and iteration == PROFILE_FIRST:
+            prof = start_profile(device)
         it_t0 = time.time()
         loss, loss_stats, extra = model.compute_loss(
             iteration, end_iteration, viewpoint, None, cfg.loss_cfg)
         loss_f = float(loss)
         it_time = time.time() - it_t0
+        if prof is not None and iteration == PROFILE_LAST:
+            stop_profile(prof, profile_dir, log)
+            prof = None
         ema_loss = 0.4 * loss_f + 0.6 * ema_loss
+        if iteration % 250 == 0:
+            gc.collect()
+            rss = _host_rss_gib()
+            if progress and iteration % 1000 == 0:
+                log.info(f"[mem] host rss {rss:.1f} GiB")
         if progress and iteration % 50 == 0:
             log.info(f"iter {iteration}/{end_iteration} L={ema_loss:.6f} "
                      f"N={getattr(model, 'n_points', 0)} "
@@ -176,4 +232,6 @@ def train(cfg: Cfg, log, tb_writer=None, scene=None, model=None,
             log.info(f"[ITER {iteration}] wall-clock checkpoint -> {path}")
 
         model.optimize_step(iteration, end_iteration, cfg.train_cfg, extra)
+    if prof is not None:  # the run ended inside the window
+        stop_profile(prof, profile_dir, log)
     return model, scene, last_eval
