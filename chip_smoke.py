@@ -154,6 +154,29 @@ one card.  Phases, in order; any failure exits non-zero:
                 stage-1 step 1 and 1' once a step; the roofline tables of
                 both steps.
 
+ 23. dist -- texgs_torch.dist on the card.  In this process, phase 3's
+                model and the bench's blob (blob_point_cloud(100,000), SH
+                3, 800x600): view 0 in 2 bands (304 rows, 8 padded) and in
+                4 (160 rows, the last 120 real) through render_band,
+                stitched and held against the whole frame as phase 5
+                holds its image (A, B and 1 once a band); kernels A, B and
+                1 on band 1 of 2's arguments and A', B' and 1' on one step
+                of the padded last band of 4, against their plain
+                versions; 2 and 4 depth slices folded with the over
+                operator against the whole frame, within the local-T_STOP
+                bound (stage 3 at the longest live M-list of view 0, so
+                no list is cut; at m = 32 the difference is reported).
+                Then dryrun_multichip(2) and (4) on CUDA tensors; and at
+                full width, 2 ranks in a (data 1, tile 2) mesh (gloo over
+                CUDA tensors: NCCL refuses two ranks on one card) take
+                phase 7's stage-3 step (tile; gauss at m = 32 and at that
+                longest list) and the blob's stage-1 step (tile, gauss),
+                each held against the single-card compute_loss step on
+                the same model and camera, the replicas identical after
+                it, three more steps timed beside the bytes the
+                collectives moved; then the same on one rank over NCCL,
+                within 1e-6 of the single-card step.
+
 The line before the last is a JSON object with one entry per kernel
 (eleven); the last line is {"ok": true, "device": {...}}.
 
@@ -161,6 +184,10 @@ The line before the last is a JSON object with one entry per kernel
 
 runs phases 1 and 19 alone, once for each training seed (Python's,
 numpy's and torch's generators, and each stage model's).
+
+    python3 chip_smoke.py --dist
+
+runs phases 1-3 and 23 alone.
 """
 
 from __future__ import annotations
@@ -686,6 +713,59 @@ def check_a_backward(torch, got, want, label="A'"):
     return max_err
 
 
+def check_a_prime(torch, a_args, label="A'"):
+    """Kernel A' against its plain version on the arguments a step's
+    backward handed it, on the tiles where the plain backward fits in the
+    card's memory (``plain_backward_tiles``).  Returns (max abs err, the
+    tiles kept, the restricted arguments, their cotangents)."""
+    from texgs_torch.kernels import uvtex_fused as kf
+
+    table, uv_rows, pairs, rays, gx, m = a_args[:6]
+    keep, note = plain_backward_tiles(torch, pairs, table.device, kf.CHUNK)
+    a_sub = (table, uv_rows, restricted_tiles(pairs, keep), rays, gx, m)
+    cots = [torch.where(keep.view(-1, *[1] * (c.dim() - 1)), c, 0.0).contiguous()
+            for c in a_args[9:]]
+    log(f"  {label} is checked on {note}")
+    with torch.no_grad():
+        fwd_sub = kf.fused_pairs_forward(*a_sub)
+        got_a = kf.fused_pairs_backward(*a_sub, *fwd_sub[:3], *cots)
+        torch.cuda.reset_peak_memory_stats()
+        want_a = kf.mlist_scan_vjp(*a_sub, *cots)
+        torch.cuda.synchronize()
+        log(f"  {label} plain backward peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        err_a = check_a_backward(torch, got_a, want_a, label)
+    return err_a, keep, a_sub, cots
+
+
+def check_b_prime(torch, b_args, label="B'"):
+    """Kernel B' against its plain version on the arguments a step's
+    backward handed it.  Returns (max abs err, the plain call's ms, the
+    live slots)."""
+    from texgs_torch.kernels import tex_term as kt
+
+    mlist = b_args[0]
+    with torch.no_grad():
+        got_b = kt.tex_term_backward(*b_args)
+        # the plain VJP takes seconds at this shape: this one call is timed
+        want_b, b_plain_ms = timed_once(
+            torch, lambda: kt.mlist_tex_term_vjp(*b_args))
+        # the loss is a mean over the frame, so these gradients are small:
+        # each output is held at 1e-4 of its own max |plain|
+        live = mlist[..., 0] != 0
+        got_live, want_live = got_b[0][live], want_b[0][live]
+        err_b = max(
+            check_scaled(torch, f"{label} d texture", got_b[1], want_b[1],
+                         1e-4, 1e-3),
+            check_scaled(torch, f"{label} d w (live slots)", got_live[:, 0],
+                         want_live[:, 0], 1e-4, 1e-3),
+            check_scaled(torch, f"{label} d uv (live slots)", got_live[:, 1:],
+                         want_live[:, 1:], 1e-4, 1e-3))
+        if got_b[0][~live][:, 1:].any():
+            fail(f"kernel {label} wrote a uv cotangent into a dead slot")
+    return err_b, b_plain_ms, live
+
+
 def restricted_tiles(pairs, keep):
     """The pair list with the tiles outside `keep` (a bool mask) emptied."""
     import torch
@@ -968,38 +1048,8 @@ def train_phases(torch, model, cams, gt_views):
     log("[train kernels] each against its plain version, on the arguments "
         f"the step-{FIRST_ITER} backward gave it")
     n_tiles = pairs.tile_counts.numel()
-    keep, note = plain_backward_tiles(torch, pairs, table.device, kf.CHUNK)
-    a_sub = (table, uv_rows, restricted_tiles(pairs, keep), rays, gx, m)
-    cots = [torch.where(keep.view(-1, *[1] * (c.dim() - 1)), c, 0.0).contiguous()
-            for c in (g_blend, g_t_final, g_mlist)]
-    log(f"  A' is checked on {note}")
-    with torch.no_grad():
-        fwd_sub = kf.fused_pairs_forward(*a_sub)
-        got_a = kf.fused_pairs_backward(*a_sub, *fwd_sub[:3], *cots)
-        torch.cuda.reset_peak_memory_stats()
-        want_a = kf.mlist_scan_vjp(*a_sub, *cots)
-        torch.cuda.synchronize()
-        log(f"  A' plain backward peak memory "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-        err_a = check_a_backward(torch, got_a, want_a)
-        del want_a
-
-        got_b = kt.tex_term_backward(*b_args)
-        # the plain VJP takes seconds at this shape: this one call is timed
-        want_b, b_plain_ms = timed_once(
-            torch, lambda: kt.mlist_tex_term_vjp(*b_args))
-        # the loss is a mean over the frame, so these gradients are small:
-        # each output is held at 1e-4 of its own max |plain|
-        live = mlist[..., 0] != 0
-        got_live, want_live = got_b[0][live], want_b[0][live]
-        err_b = max(
-            check_scaled(torch, "B' d texture", got_b[1], want_b[1], 1e-4, 1e-3),
-            check_scaled(torch, "B' d w (live slots)", got_live[:, 0],
-                         want_live[:, 0], 1e-4, 1e-3),
-            check_scaled(torch, "B' d uv (live slots)", got_live[:, 1:],
-                         want_live[:, 1:], 1e-4, 1e-3))
-        if got_b[0][~live][:, 1:].any():
-            fail("kernel B' wrote a uv cotangent into a dead slot")
+    err_a, keep, a_sub, cots = check_a_prime(torch, a_args)
+    err_b, b_plain_ms, live = check_b_prime(torch, b_args)
 
     # -------------------------------------------------- 9. train timings
     it = [FIRST_ITER + STEPS + 1]
@@ -1118,6 +1168,54 @@ def check_tile_orders(torch, table, pairs, gx, got):
         if not all(same):
             fail("kernel 1's outputs depend on the order it takes the tiles "
                  "in")
+
+
+def check_1_prime(torch, b_args, label="1'"):
+    """Kernel 1' against its plain version on the arguments a step's
+    backward handed it (F = 7), on a prefix of whole tile rows where the
+    plain backward would not fit in the card's memory.  Returns (max abs
+    err, the restricted pair list, its cotangents, its tile count)."""
+    from texgs_torch.kernels import raster as kr
+
+    table, pairs, gx = b_args[:3]
+    g_blend, g_t_final = b_args[5:]
+    n_tiles = pairs.tile_counts.numel()
+    n_chunks = -(-int(pairs.tile_counts.max()) // kr.CHUNK)
+    # the plain backward keeps about 16 (tiles, 256, CHUNK) f32
+    # intermediates per chunk for autograd; where that would not fit, the
+    # check keeps a prefix of whole tile rows (tile coordinates follow the
+    # tile index)
+    need = n_chunks * 16 * n_tiles * 256 * kr.CHUNK * 4
+    free = torch.cuda.mem_get_info()[0]
+    rows = -(-n_tiles // gx)
+    if need > 0.6 * free:
+        rows = max(1, int(rows * 0.6 * free / need))
+    t_sub = min(n_tiles, rows * gx)
+    sub = pairs._replace(tile_start=pairs.tile_start[:t_sub],
+                         tile_end=pairs.tile_end[:t_sub],
+                         tile_counts=pairs.tile_counts[:t_sub])
+    cots = (g_blend[:t_sub].contiguous(), g_t_final[:t_sub].contiguous())
+    log(f"  {int(pairs.n_pairs)} pairs over {n_tiles} tiles (at most "
+        f"{int(pairs.tile_counts.max())} a tile); {label} is checked on the "
+        f"first {t_sub} tiles (plain backward needs about {need / 1e9:.1f} GB "
+        f"for all, {free / 1e9:.1f} GB free)")
+    with torch.no_grad():
+        fwd_sub = kr.raster_pairs_forward(table, sub, gx)
+        got_1b = kr.raster_pairs_backward(table, sub, gx, *fwd_sub[:2], *cots)
+        torch.cuda.reset_peak_memory_stats()
+        want_1b = kr.raster_scan_vjp(table, sub, gx, *cots)
+        torch.cuda.synchronize()
+        log(f"  {label} plain backward peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        err_1b = max(check_scaled(torch, f"{label} {name}", got_1b[:, cols],
+                                  want_1b[:, cols], 1e-3, 1e-3,
+                                  MAX_OFF_GAUSSIANS, rows=True)
+                     for name, cols in (("quad", slice(0, 6)),
+                                        ("channels", slice(7, 14))))
+        if got_1b[:, [6, 14, 15]].any():
+            fail(f"kernel {label} wrote gradient into a column it must leave "
+                 "at zero")
+    return err_1b, sub, cots, t_sub
 
 
 def spiral_ground_truth(torch, device, pcd, cams):
@@ -1244,25 +1342,6 @@ def stage1_phases(torch, device, work_dir):
     log("[stage1 kernels] each against its plain version, on the arguments "
         f"the step-{STAGE1_FIRST_ITER} render and backward gave it")
     n_tiles = pairs.tile_counts.numel()
-    n_chunks = -(-int(pairs.tile_counts.max()) // kr.CHUNK)
-    # the plain backward keeps about 16 (tiles, 256, CHUNK) f32
-    # intermediates per chunk for autograd; where that would not fit, the
-    # check keeps a prefix of whole tile rows (tile coordinates follow the
-    # tile index)
-    need = n_chunks * 16 * n_tiles * 256 * kr.CHUNK * 4
-    free = torch.cuda.mem_get_info()[0]
-    rows = -(-n_tiles // gx)
-    if need > 0.6 * free:
-        rows = max(1, int(rows * 0.6 * free / need))
-    t_sub = min(n_tiles, rows * gx)
-    sub = pairs._replace(tile_start=pairs.tile_start[:t_sub],
-                         tile_end=pairs.tile_end[:t_sub],
-                         tile_counts=pairs.tile_counts[:t_sub])
-    cots = (g_blend[:t_sub].contiguous(), g_t_final[:t_sub].contiguous())
-    log(f"  {int(pairs.n_pairs)} pairs over {n_tiles} tiles (at most "
-        f"{int(pairs.tile_counts.max())} a tile); 1' is checked on the first "
-        f"{t_sub} tiles (plain backward needs about {need / 1e9:.1f} GB for "
-        f"all, {free / 1e9:.1f} GB free)")
     with torch.no_grad():
         got_1 = kr.raster_pairs_forward(table, pairs, gx)
         want_1 = kr.raster_scan(table, pairs, gx)
@@ -1271,21 +1350,7 @@ def stage1_phases(torch, device, work_dir):
             fail("the stage-1 step handed kernel 1 a pair list without its "
                  "tile order")
         check_tile_orders(torch, table, pairs, gx, got_1)
-        fwd_sub = kr.raster_pairs_forward(table, sub, gx)
-        got_1b = kr.raster_pairs_backward(table, sub, gx, *fwd_sub[:2], *cots)
-        torch.cuda.reset_peak_memory_stats()
-        want_1b = kr.raster_scan_vjp(table, sub, gx, *cots)
-        torch.cuda.synchronize()
-        log(f"  1' plain backward peak memory "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-        err_1b = max(check_scaled(torch, f"1' {name}", got_1b[:, cols],
-                                  want_1b[:, cols], 1e-3, 1e-3,
-                                  MAX_OFF_GAUSSIANS, rows=True)
-                     for name, cols in (("quad", slice(0, 6)),
-                                        ("channels", slice(7, 14))))
-        if got_1b[:, [6, 14, 15]].any():
-            fail("kernel 1' wrote gradient into a column it must leave at zero")
-        del want_1b
+    err_1b, sub, cots, t_sub = check_1_prime(torch, b_args)
 
     # -------------------------------------------------- 13. stage-1 timings
     it = [last + 1]
@@ -2430,6 +2495,586 @@ def measure_phase(torch, device, work_dir):
         log(roofline.table(comps))
 
 
+# ------------------------------------------------------------------ 23. dist
+# bands and depth slices of the in-process checks
+DIST_SPLITS = (2, 4)
+# ranks of the full-width sharded steps; steps timed after the checked one
+DIST_RANKS = 2
+DIST_TIMED = 3
+# the full-width stage-1 step: the bench's blob, SH degree 3
+DIST_S1_SH = 3
+
+
+def sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def stitched(torch, render_fn, cam, n, keys):
+    """render_fn's n row bands of `cam`, stitched: {key: (C, H, W)}."""
+    from texgs_torch.dist.tile_parallel import (band_height, render_band,
+                                                stitch_bands)
+
+    bh = band_height(cam.height, n)
+    outs = [render_band(cam, i * bh, bh, render_fn) for i in range(n)]
+    return {k: stitch_bands(torch.stack([o[k] for o in outs]), cam.height)
+            for k in keys}
+
+
+def band_rows_of(torch, image, row0, bh, height):
+    """Rows [row0, row0 + bh) of a (C, H, W) image, zero below the image,
+    and the mask of the rows inside it."""
+    pad = torch.nn.functional.pad(image, (0, 0, 0, row0 + bh - height)) \
+        if row0 + bh > height else image
+    rows = torch.arange(row0, row0 + bh, device=image.device)
+    return pad[:, row0:row0 + bh], (rows < height).float()[None, :, None]
+
+
+def fold_error(torch, name, got, want, bound):
+    """Max and q99.9 of |got - want|; fails beyond `bound`."""
+    err = (got - want).abs().flatten()
+    q = torch.quantile(err[::max(1, err.numel() // (1 << 24))].float(), 0.999)
+    log(f"  {name}: max {err.max().item():.3e}, q99.9 {q.item():.3e} "
+        f"(bound {bound:.3e})")
+    if not err.max().item() <= bound:
+        fail(f"{name}: the folded slices leave the local-T_STOP bound")
+    return err.max().item()
+
+
+def dist_inprocess_phase(torch, device, model, s1, cam, gt3, gt1):
+    """Phase 23's checks in this process: stitched bands and folded depth
+    slices against the whole frame, kernels on band arguments.  Returns
+    the M-list length that cuts no pixel's list of view 0."""
+    from texgs_torch.dist.gauss_sharded import (finish_fold, render_slice,
+                                                render_uv_slice)
+    from texgs_torch.dist.tile_parallel import band_height, render_band
+    from texgs_torch.kernels import project as proj_k
+    from texgs_torch.kernels import raster as kr
+    from texgs_torch.kernels import tex_term as kt
+    from texgs_torch.kernels import uvtex_fused as kf
+    from texgs_torch.kernels.reference import ALPHA_CLAMP, T_STOP
+    from texgs_torch.kernels.uvtex_raster import residual_sh_colors
+    from texgs_torch.utils.sh import C0
+
+    height = cam.height
+    close = dict(atol=1e-4, rtol=1e-4, max_off=3 * MAX_OFF_PIXELS, hard=0.05)
+    counters = {"uvtex_fused": kf.fused_pairs, "tex_term": kt.tex_term,
+                "raster": kr.raster_pairs}
+    with torch.no_grad():
+        whole3 = model.render(cam)
+        whole1 = s1._render(cam)
+        for n in DIST_SPLITS:
+            bh = band_height(height, n)
+            for fn in counters.values():
+                fn.launches = 0
+            got3 = stitched(torch, model._render, cam, n,
+                            ("render", "render_no_sh", "alpha"))
+            got1 = stitched(torch, s1._render, cam, n, ("render", "alpha"))
+            sync(torch, device)
+            launches = {k: fn.launches for k, fn in counters.items()}
+            log(f"[dist] {n} bands of {bh} rows (the last {height - (n - 1) * bh}"
+                f" real, {n * bh - height} padded); launches {launches}")
+            if device.type == "cuda" and launches != {k: n for k in counters}:
+                fail(f"{n} bands launched {launches}, expected each kernel "
+                     "once a band")
+            for k in ("render", "render_no_sh", "alpha"):
+                check_close(torch, f"stage-3 {k}, {n} bands stitched vs the "
+                            "whole frame", got3[k], whole3[k], **close)
+            for k in ("render", "alpha"):
+                check_close(torch, f"stage-1 {k}, {n} bands stitched vs the "
+                            "whole frame", got1[k], whole1[k], **close)
+
+        # kernels A, B and 1 on the arguments of band 1 of 2
+        bh = band_height(height, 2)
+        seen = {}
+        with recording(kf, "fused_pairs", seen), \
+                recording(kt, "tex_term", seen), \
+                recording(kr, "raster_pairs", seen):
+            model._render(cam, row_offset=bh, band_height=bh)
+            s1._render(cam, row_offset=bh, band_height=bh)
+        a_args, b_args, r_args = (seen["fused_pairs"], seen["tex_term"],
+                                  seen["raster_pairs"])
+        log(f"[dist kernels] on band 1 of 2 (rows {bh}..{2 * bh}, "
+            f"{2 * bh - height} padded): stage 3 {int(a_args[2].n_pairs)} "
+            f"pairs over {a_args[2].tile_counts.numel()} band-local tiles, "
+            f"stage 1 {int(r_args[1].n_pairs)}; the band's first row rides "
+            "in the rays' c0, so the plain scans take tile0 = 0")
+        check_kernel_a(torch, kf.fused_pairs_forward(*a_args),
+                       kf.mlist_scan(*a_args, tile0=0))
+        check_close(torch, "B on the band's M-lists", kt.tex_term(*b_args),
+                    kt.mlist_tex_term(*b_args), atol=2e-5, rtol=1e-4)
+        check_kernel_1(torch, kr.raster_pairs_forward(*r_args),
+                       kr.raster_scan(*r_args, tile0=0))
+
+    # A', B' and 1' on one step of the padded last band of 4
+    bh = band_height(height, 4)
+    row0 = 3 * bh
+    seen = {}
+    for leaves in (model._gauss_leaves(), model._uv_leaves(),
+                   model._tex_leaves(), s1.state.params_dict()):
+        for p in leaves.values():
+            p.requires_grad_(True)
+            p.grad = None
+    with recording(kf, "fused_pairs_backward", seen), \
+            recording(kt, "tex_term_backward", seen), \
+            recording(kr, "raster_pairs_backward", seen), \
+            torch.enable_grad():
+        for mdl, gt in ((model, gt3), (s1, gt1)):
+            out = render_band(cam, row0, bh, mdl._render)
+            img, mask = band_rows_of(torch, gt["image"], row0, bh, height)
+            alpha, _ = band_rows_of(torch, gt["alpha"], row0, bh, height)
+            loss = (((out["render"] - img) * mask).abs().mean()
+                    + ((out["alpha"] - alpha) * mask).abs().mean())
+            if "render_no_sh" in out:
+                loss = loss + ((out["render_no_sh"] - img) * mask).abs().mean()
+            loss.backward()
+    log(f"[dist kernels] one band step on band 3 of 4 (rows {row0}.."
+        f"{row0 + bh}, {row0 + bh - height} padded): A', B' and 1' against "
+        "their plain versions on its arguments")
+    check_a_prime(torch, seen["fused_pairs_backward"], "A' (band)")
+    check_b_prime(torch, seen["tex_term_backward"], "B' (band)")
+    check_1_prime(torch, seen["raster_pairs_backward"], "1' (band)")
+    for leaves in (model._gauss_leaves(), model._uv_leaves(),
+                   model._tex_leaves(), s1.state.params_dict()):
+        for p in leaves.values():
+            p.grad = None
+
+    # depth slices folded with the over operator
+    bound = ALPHA_CLAMP * T_STOP / (1 - ALPHA_CLAMP)
+    with torch.no_grad():
+        m0 = int(model.cfg.get_or("uvtex_m", 32))
+        model.cfg.uvtex_m = 256
+        seen = {}
+        with recording(kt, "tex_term", seen):
+            model.render(cam)
+        slots = (seen["tex_term"][0][..., 0] != 0).sum(-1)
+        m_nocut = int(slots.max())
+        cut = int((slots > m0).sum())
+        log(f"[dist slices] the longest live M-list of view 0 holds "
+            f"{m_nocut} entries ({cut} pixels hold more than m = {m0}); "
+            f"the slices are held at m = {m_nocut}, which cuts no list")
+        if m_nocut >= 256:
+            fail("view 0 has a pixel list of 256 entries or more")
+        act = model._activated()
+        uvs, jac = model._uvs_and_jac(act["xyz"])
+        campos = torch.as_tensor(cam.camera_center, device=device)
+        c_max3 = (residual_sh_colors(act["shs"], act["xyz"], campos,
+                                     model.active_sh_degree).max().item()
+                  + C0 * model.texture.abs().max().item())
+        st = s1.state
+        c_max1 = proj_k.sh_colors(st.get_features(), st.xyz, campos,
+                                  s1.active_sh_degree).max().item()
+        kw3 = dict(xyz=act["xyz"], opacity=act["opacity"],
+                   scaling=act["scaling"], rotation=act["rotation"], uvs=uvs,
+                   grad_uvs=jac, texture=model.texture, shs=act["shs"],
+                   active_sh_degree=model.active_sh_degree, backend="auto",
+                   tex_backend="auto", with_no_sh=True)
+        kw1 = dict(xyz=st.xyz, opacity=st.get_opacity(),
+                   scaling=st.get_scaling(), rotation=st.get_rotation(),
+                   features=st.get_features(),
+                   active_sh_degree=s1.active_sh_degree)
+        for m in (m_nocut, m0):
+            model.cfg.uvtex_m = m
+            whole = model.render(cam)
+            for n in DIST_SPLITS:
+                parts = [render_uv_slice(cam, m=m, index=i, n_slices=n, **kw3)
+                         for i in range(n)]
+                fold = finish_fold(torch.stack([p[0] for p in parts]),
+                                   torch.stack([p[1] for p in parts]),
+                                   model.bg)
+                for k in ("render", "alpha"):
+                    b = bound * (c_max3 if k == "render" else 1.0)
+                    name = f"stage-3 {k}, {n} depth slices folded, m = {m}"
+                    if m == m_nocut:
+                        fold_error(torch, name, fold[k], whole[k], b + 1e-4)
+                    else:  # each slice its own m slots: no bound holds
+                        err = (fold[k] - whole[k]).abs()
+                        log(f"  {name}: max {err.max().item():.3e}, mean "
+                            f"{err.mean().item():.3e} (each slice keeps its "
+                            f"own {m} slots; {cut} pixels hold more)")
+        model.cfg.uvtex_m = m0
+        for n in DIST_SPLITS:
+            parts = [render_slice(cam, index=i, n_slices=n, **kw1)
+                     for i in range(n)]
+            fold = finish_fold(torch.stack([p[0] for p in parts]),
+                               torch.stack([p[1] for p in parts]), s1.bg)
+            for k in ("render", "alpha"):
+                b = bound * (c_max1 if k == "render" else 1.0)
+                fold_error(torch, f"stage-1 {k}, {n} depth slices folded",
+                           fold[k], whole1[k], b + 1e-4)
+    return m_nocut
+
+
+def dist_stage3_model(torch, inp, device, m=None):
+    """Phase 3's model as phase 7 trains it (the chessboard retexture,
+    stage3_stepper's setup), from phase 23's inputs."""
+    from texgs_torch.config import Cfg
+    from texgs_torch.train.texture_gaussian3d import from_jax_state
+
+    cfg = dict(inp["model_cfg"]) if m is None else dict(inp["model_cfg"],
+                                                        uvtex_m=m)
+    model = from_jax_state(inp["sd3"], Cfg(cfg), device=device)
+    # training starts from the chessboard retexture, as in phase 7: the
+    # ground truth is the model's own render before it
+    model.change_texture(inp["chess"], mode=0)
+    model.spatial_lr_scale = SPATIAL_LR_SCALE
+    model.setup_optim(Cfg(OPTIM_CFG))
+    seed_nu(model.adam_g, model.adam_uv, model.adam_tex)
+    model.bind_train_cfg(Cfg(TRAIN_CFG), cfg["background"])
+    return model
+
+
+def dist_stage1_model(torch, params, device):
+    """The bench's blob as configs/prod_stage1.yaml trains it, SH 3."""
+    from texgs_torch.config import Cfg
+    from texgs_torch.core.state import GaussianState
+    from texgs_torch.train.gaussian3d import Gaussian3D
+
+    model = Gaussian3D(Cfg(STAGE1_MODEL_CFG), device=device)
+    model.bind_train_cfg(Cfg(STAGE1_TRAIN_CFG), [0, 0, 0])
+    model.spatial_lr_scale = SPATIAL_LR_SCALE
+    model.state = GaussianState.from_params(
+        {k: torch.as_tensor(v, device=device).clone()
+         for k, v in params.items()})
+    model.setup_optim(Cfg(STAGE1_OPTIM_CFG))
+    seed_nu(model.adam)
+    model.active_sh_degree = DIST_S1_SH
+    return model
+
+
+def seed_nu(*adams):
+    """Adam's second moments at 1e-6, as texgs's sharded tests seed theirs
+    (tests/test_dist_sharded.py:222-229): a first step from zero moments
+    moves an element by +-lr whatever its gradient's size, so a gradient
+    near 0 whose sign the atomics of two runs round apart would move it
+    2 lr apart; seeded, an update follows its gradient smoothly."""
+    for adam in adams:
+        for v in adam.nu.values():
+            v.add_(1e-6)
+
+
+def stage3_leaves(model):
+    """{name: (leaf, its Adam)} of a stage-3 model."""
+    return {**{f"gauss.{k}": (v, model.adam_g)
+               for k, v in model._gauss_leaves().items()},
+            **{f"uv.{k}": (v, model.adam_uv)
+               for k, v in model._uv_leaves().items()},
+            "tex.texture": (model.texture, model.adam_tex)}
+
+
+def stage1_leaves(model):
+    return {k: (v, model.adam) for k, v in model.state.params_dict().items()}
+
+
+def compare_densify(torch, got, want, mode, exact):
+    """The densify stats of a sharded stage-1 step against the single-card
+    step's: visibility counts and max radii equal, the NDC-gradient norms
+    within 1e-3 of their max (tile), 3e-2 (gauss: the local T stop), or
+    1e-6 (one rank)."""
+    for k in ("denom", "max_radii2d"):
+        if not torch.equal(getattr(got, k), getattr(want, k)):
+            fail(f"densify stats: {k} differs from the single-card step's")
+    a, b = got.xyz_gradient_accum, want.xyz_gradient_accum
+    diff = (a - b).abs().max().item()
+    err = diff / (b.abs().max().item() + 1e-12)
+    if not (diff <= 1e-6 if exact
+            else err <= (1e-3 if mode == "tile" else 3e-2)):
+        fail(f"densify stats: the NDC-gradient norms differ by {diff:.3e}, "
+             f"{err:.3e} of their max")
+    return (f"densify stats: counts and radii equal, norms {diff:.2e} apart "
+            f"({err:.2e} of their max)")
+
+
+def compare_steps(torch, what, got, want, loss, want_loss, mode, exact=False,
+                  enforce=True):
+    """A sharded step's result (`got`: {name: (leaf, adam)} after it)
+    against the single-card step's (`want`).  Tile mode: loss rtol 1e-4,
+    parameters atol 3e-4 where |grad| > 1e-6 (texgs's
+    tests/test_dist_sharded.py:127-135); gauss mode: the local-T_STOP
+    divergence, loss rtol 3e-3 and gradients at 2e-2 of each leaf's max
+    (texgs's :556-559) for 99.9% of each leaf's elements, none beyond the
+    max (an L1 residual within an ulp of 0 takes the other sign in the
+    fold, and a texel or Gaussian that such pixels alone reach moves by a
+    whole pixel's share); `exact`: every value within 1e-6.  Without
+    `enforce` only finite values are required.  Returns a summary for the
+    log."""
+    rel_loss = abs(loss - want_loss) / max(abs(want_loss), 1e-12)
+    worst_p = worst_g = 0.0
+    bitwise = loss == want_loss
+    for name, (leaf, adam) in want.items():
+        key = name.split(".", 1)[-1]
+        p_want, g_want = leaf.detach(), adam.mu[key] / 0.1
+        g_leaf, g_adam = got[name]
+        p_got, g_got = g_leaf.detach(), g_adam.mu[key] / 0.1
+        bitwise = bitwise and torch.equal(p_got, p_want)
+        if not (torch.isfinite(p_got).all() and torch.isfinite(g_got).all()):
+            fail(f"{what}: {name} is not finite")
+        rel = (g_got - g_want).abs() / (g_want.abs().max() + 1e-12)
+        g_err = rel.max().item()
+        g_off = (rel > 2e-2).float().mean().item()
+        worst_g = max(worst_g, g_err)
+        moving = g_want.abs() > 1e-6
+        p_err = ((p_got - p_want).abs()[moving].max().item()
+                 if bool(moving.any()) else 0.0)
+        worst_p = max(worst_p, p_err)
+        if not enforce:
+            continue
+        if exact:
+            p_err = (p_got - p_want).abs().max().item()
+            if p_err > 1e-6:
+                fail(f"{what}: {name} differs by {p_err:.3e}")
+        elif mode == "tile" and p_err > 3e-4:
+            fail(f"{what}: {name} differs by {p_err:.3e} where |grad| > 1e-6")
+        elif mode == "gauss" and (g_off > 1e-3 or g_err > 1.0):
+            fail(f"{what}: {name}'s gradient differs by {g_err:.3e} of its "
+                 f"max, {g_off:.2e} of its elements by more than 2e-2")
+    tol = 1e-6 if exact else (1e-4 if mode == "tile" else 3e-3)
+    if not math.isfinite(loss) or (enforce and not (
+            abs(loss - want_loss) <= 1e-6 if exact else rel_loss <= tol)):
+        fail(f"{what}: loss {loss!r} vs the single-card step's {want_loss!r}")
+    return (f"loss {loss:.6f} vs {want_loss:.6f} (rel {rel_loss:.2e}); max "
+            f"param diff where |grad| > 1e-6 {worst_p:.2e}, max grad diff "
+            f"{worst_g:.2e} of the leaf's max; bit for bit: {bitwise}"
+            + ("" if enforce else " (reported, not held)"))
+
+
+def dist_rank_main(rank, world, port, backend, device_type, in_path,
+                   out_path):
+    """One rank of phase 23's full-width sharded steps (spawned)."""
+    import pickle
+
+    import torch
+
+    from texgs_torch.config import Cfg
+    from texgs_torch.dist import collectives
+    from texgs_torch.dist.mesh import initialize_dist, make_mesh, transport
+    from texgs_torch.dist.sharded import (stage1_sharded_step,
+                                          stage3_sharded_step)
+    from texgs_torch.kernels import raster as kr
+    from texgs_torch.kernels import tex_term as kt
+    from texgs_torch.kernels import uvtex_fused as kf
+    from texgs_torch.nets import hash_encode as ke
+
+    torch.set_num_threads(1)
+    device = initialize_dist(backend, device_type, f"tcp://localhost:{port}",
+                             world, rank)
+    with open(in_path, "rb") as f:
+        inp = pickle.load(f)
+    mesh = make_mesh(("data", "tile"), (1, world), device.type)
+    counters = {"uvtex_fused": kf.fused_pairs, "tex_term": kt.tex_term,
+                "uvtex_fused_bwd": kf.fused_pairs_backward,
+                "tex_term_bwd": kt.tex_term_backward,
+                "hash_encode": ke.hash_encode,
+                "hash_encode_bwd": ke.hash_encode_backward,
+                "raster": kr.raster_pairs,
+                "raster_bwd": kr.raster_pairs_backward}
+    report = {"transport": transport(mesh), "steps": []}
+    cam3, cam1 = inp["cam3"], inp["cam1"]
+    loss3_cfg, loss1_cfg = Cfg(LOSS_CFG), Cfg(STAGE1_LOSS_CFG)
+    modes = ("tile", "gauss") if world > 1 else ("tile",)
+    runs = [(3, mode, m) for mode in modes
+            for m in ((32, inp["m_nocut"]) if mode == "gauss" else (32,))]
+    runs += [(1, mode, None) for mode in modes]
+    for stage, mode, m in runs:
+        if stage == 3:
+            model = dist_stage3_model(torch, inp, device, m)
+            flags, lambdas, lrs, apply = model.step_settings(
+                FIRST_ITER, cam3, loss3_cfg)
+
+            def step():
+                return stage3_sharded_step(
+                    mesh, model, [cam3], lrs, {"bg": model.bg, **lambdas},
+                    apply, flags, model.active_sh_degree,
+                    int(model.cfg.max_inverse_points), m=m, backend="auto",
+                    tex_backend="auto", shard_mode=mode)[0]
+            leaves = stage3_leaves
+        else:
+            model = dist_stage1_model(torch, inp["s1_params"], device)
+            flags, lambdas, lrs, apply = model.step_settings(
+                STAGE1_FIRST_ITER, cam1, loss1_cfg)
+
+            def step():
+                loss, _, model.stats = stage1_sharded_step(
+                    mesh, model.state, model.adam, model.stats, [cam1], lrs,
+                    {"bg": model.bg, **lambdas}, apply, flags,
+                    model.active_sh_degree, backend="auto", shard_mode=mode)
+                return loss
+            leaves = stage1_leaves
+        for fn in counters.values():
+            fn.launches = 0
+        traffic0 = dict(collectives.TRAFFIC)
+        loss = float(step())
+        sync(torch, device)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        traffic = {k: v - traffic0[k] for k, v in collectives.TRAFFIC.items()}
+        got = leaves(model)
+        divergence = collectives.replica_divergence(
+            [leaf for leaf, _ in got.values()])
+        if divergence != 0.0:
+            fail(f"stage {stage} {mode} m={m}: the replicas differ by "
+                 f"{divergence:.3e}")
+        if world == 1:  # NCCL carries one collective of the step's loss
+            t = torch.tensor([loss], device=device)
+            torch.distributed.all_reduce(t)
+            if t.item() != loss:
+                fail("a one-rank all_reduce changed its value")
+        summary = None
+        if rank == 0:
+            # the single-card step on the same model and camera; a gauss
+            # step at m = 32 is only reported: each slice keeps its own m
+            # slots, so a pixel whose list the whole frame cuts gains
+            # contributors
+            enforce = not (stage == 3 and mode == "gauss" and m == 32)
+            if stage == 3:
+                ref = dist_stage3_model(torch, inp, device, m)
+                want_loss = float(ref.compute_loss(FIRST_ITER, 10000, cam3,
+                                                   None, loss3_cfg)[0])
+            else:
+                ref = dist_stage1_model(torch, inp["s1_params"], device)
+                want_loss = float(ref.compute_loss(STAGE1_FIRST_ITER, 7500,
+                                                   cam1, None, loss1_cfg)[0])
+            summary = compare_steps(
+                torch, f"stage {stage} {mode} over {world} rank(s)", got,
+                leaves(ref), loss, want_loss, mode, exact=world == 1,
+                enforce=enforce)
+            if stage == 1:
+                summary += "; " + compare_densify(torch, model.stats,
+                                                  ref.stats, mode, world == 1)
+            if world == 1:
+                # the control: a second single-card step on the same inputs
+                ref2 = (dist_stage3_model(torch, inp, device, m) if stage == 3
+                        else dist_stage1_model(torch, inp["s1_params"], device))
+                it, c, lc = ((FIRST_ITER, cam3, loss3_cfg) if stage == 3
+                             else (STAGE1_FIRST_ITER, cam1, loss1_cfg))
+                ref2.compute_loss(it, 10000, c, None, lc)
+                same = all(torch.equal(a.detach(), b.detach()) for (a, _), (b, _)
+                           in zip(leaves(ref).values(), leaves(ref2).values()))
+                summary += (f"; two single-card steps bit for bit: {same}")
+                del ref2
+            del ref
+        torch.distributed.barrier()
+        times = []
+        for _ in range(DIST_TIMED):
+            sync(torch, device)
+            t0 = time.perf_counter()
+            step()
+            sync(torch, device)
+            times.append(time.perf_counter() - t0)
+        report["steps"].append({
+            "stage": stage, "mode": mode, "m": m, "loss": loss,
+            "check": summary, "launches": launches, "traffic": traffic,
+            "seconds": float(np.median(times)), "divergence": divergence})
+        del model
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def dist_spawn(torch, world, backend, inputs, device, work_dir):
+    """Phase 23's ranks over `world` processes; returns rank 0's report."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = f"{work_dir}/dist_{world}_{backend}.json"
+    mp.start_processes(dist_rank_main,
+                       args=(world, port, backend, device.type, inputs, out),
+                       nprocs=world, start_method="spawn")
+    with open(out) as f:
+        return json.load(f)
+
+
+def dist_phase(torch, device, sd0, cams, gt0, work_dir, card):
+    """Phase 23 (see the module docstring)."""
+    import pickle
+
+    from texgs_torch.core.camera import with_ground_truth
+    from texgs_torch.data.synthetic import blob_point_cloud
+    from texgs_torch.config import Cfg
+    from texgs_torch.core.state import init_from_pcd
+    from texgs_torch.dist.dryrun import dryrun_multichip, pick_backend
+    from texgs_torch.kernels.cubemap import chessboard_cubemap, faces_to_cross
+    from texgs_torch.train.texture_gaussian3d import from_jax_state
+
+    t_phase = time.perf_counter()
+    cam = cams[0]
+    chess = faces_to_cross(chessboard_cubemap(TEX_RES // 16, 16,
+                                              device=device))
+    model = from_jax_state(sd0, Cfg(MODEL_CFG), device=device)
+    model.change_texture(chess, mode=0)
+    model.bind_train_cfg(None, MODEL_CFG["background"])
+    pcd = blob_point_cloud(N_GAUSS, seed=0)
+    state = init_from_pcd(pcd.points, pcd.colors, DIST_S1_SH, device=device)
+    params = {k: v.detach().cpu().numpy()
+              for k, v in state.params_dict().items()}
+    s1 = dist_stage1_model(torch, params, device)
+    cam1 = spiral_ground_truth(torch, device, pcd, [cam])[0]
+    gt1 = {"image": cam1.image, "alpha": cam1.alpha_mask}
+    m_nocut = dist_inprocess_phase(torch, device, model, s1, cam, gt0, gt1)
+    del model, s1
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    def host(a):
+        return None if a is None else a.detach().cpu().numpy()
+
+    # the steps' stage-3 ground truth: view 0's image (the model starts
+    # from the chessboard) lifted by 0.05, its alpha as a binary mask and
+    # its normals turned 5 degrees, so that few loss residuals lie near 0,
+    # where an L1 term's gradient turns on the sign of a difference that
+    # the sharded and the single-card renders round apart
+    mask = (gt0["alpha"] > 0.5).float()
+    c, s_ = math.cos(math.radians(5.0)), math.sin(math.radians(5.0))
+    nx, ny, nz = gt0["norm"]
+    normal = torch.stack([c * nx - s_ * ny, s_ * nx + c * ny, nz])
+    inputs = f"{work_dir}/dist_inputs.pkl"
+    with open(inputs, "wb") as f:
+        pickle.dump({
+            "sd3": sd0, "model_cfg": MODEL_CFG, "chess": host(chess),
+            "s1_params": params,
+            "m_nocut": m_nocut,
+            "cam3": with_ground_truth(cam, host(gt0["image"] + 0.05),
+                                      host(mask), normal=host(normal)),
+            "cam1": with_ground_truth(cam, host(cam1.image),
+                                      host(cam1.alpha_mask),
+                                      normal=host(cam1.normal))}, f)
+
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        dryrun_multichip(n, device=device.type)
+        log(f"[dist] dryrun_multichip({n}) on {device.type} tensors in "
+            f"{time.perf_counter() - t0:.1f} s")
+    for world in (DIST_RANKS, 1):
+        backend = pick_backend(world, device)
+        t0 = time.perf_counter()
+        report = dist_spawn(torch, world, backend, inputs, device, work_dir)
+        log(f"[dist] {world} rank(s) in a (data 1, tile {world}) mesh at full "
+            f"width, {report['transport']}; {time.perf_counter() - t0:.1f} s")
+        for st in report["steps"]:
+            lbl = (f"stage {st['stage']} {st['mode']}"
+                   + (f" m = {st['m']}" if st["m"] else ""))
+            log(f"  {lbl}: {st['check']}; replicas identical "
+                f"(max diff {st['divergence']}); launches {st['launches']}")
+            log(f"  {lbl}: {st['seconds'] * 1e3:.1f} ms a step (median of "
+                f"{DIST_TIMED}); collectives moved {st['traffic']} bytes a "
+                f"rank; {card}"
+                + ("; gloo through the host on one card: not a multi-GPU "
+                   "figure" if backend == "gloo" else ""))
+            want = (("uvtex_fused", "tex_term", "uvtex_fused_bwd",
+                     "tex_term_bwd", "hash_encode", "hash_encode_bwd")
+                    if st["stage"] == 3 else ("raster", "raster_bwd"))
+            if device.type == "cuda" and not all(st["launches"][k] >= 1
+                                                 for k in want):
+                fail(f"{lbl} did not launch each of {want}")
+    log(f"[dist] phase 23 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def build_model(torch, device):
     from texgs_torch.config import Cfg
     from texgs_torch.core.state import init_from_pcd
@@ -2477,6 +3122,8 @@ def main(argv=None) -> int:
                              "golden phase, once for each")
     parser.add_argument("--golden-m", type=int, default=GOLDEN_M,
                         help="stage 3's M-list length in those runs")
+    parser.add_argument("--dist", action="store_true",
+                        help="run phases 1-3 and 23 (texgs_torch.dist) only")
     args = parser.parse_args(argv)
 
     # ---------------------------------------------------------- 1. device
@@ -2534,6 +3181,20 @@ def main(argv=None) -> int:
 
     # phase 3's model, for the two-kernel phases
     sd0 = model.state_dict()
+    if args.dist:
+        with torch.no_grad():
+            v = model.visual_step(0, 1, cams[0])
+        del model
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as work_dir:
+            dist_phase(torch, device, sd0, cams,
+                       {k: v[k] for k in ("image", "alpha", "norm")},
+                       work_dir, card)
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     # the arguments the main path hands each kernel wrapper, for view 0
     a_args, b_args = main_path_kernel_args(model, cams[0])
     table, uv_rows, pairs, _, _, m = a_args
@@ -2713,12 +3374,16 @@ def main(argv=None) -> int:
                                            retextured, chess, render_ms,
                                            step_ms)
         kernels += entries
+        # view 0's fused image, alpha and normals: phase 23's ground truth
+        gt0 = {k: views[0][k] for k in ("image", "alpha", "norm")}
         del views, retextured
         torch.cuda.empty_cache()
         tools_phase(torch, device, model, work_dir)
         del model
         torch.cuda.empty_cache()
         measure_phase(torch, device, work_dir)
+        torch.cuda.empty_cache()
+        dist_phase(torch, device, sd0, cams, gt0, work_dir, card)
     log(f"[launches] device launches of one step under torch.profiler: "
         f"stage 3 {step3_launches}, stage 2 {step2_launches}")
     log(card)

@@ -8,7 +8,7 @@ normal.  Batched elementwise tensor code, in texgs's channel form.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -178,3 +178,15 @@ def sh_colors(features: torch.Tensor, xyz: torch.Tensor, campos: torch.Tensor,
     dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
     rgb = eval_sh(active_sh_degree, features.transpose(-1, -2), dirs) + 0.5
     return torch.clamp(rgb, min=0.0)
+
+
+def band_rows(proj: ProjectedGaussians, row_offset: int,
+              band_height: Optional[int]):
+    """(proj, height) of the band of rows [row_offset, row_offset +
+    band_height): the projected means moved up by row_offset, so binning
+    and the kernels see the band as a short image of band-local tiles
+    (texgs render.py:67-77)."""
+    if band_height is None:
+        raise ValueError("row_offset needs band_height")
+    shift = torch.tensor([0.0, float(row_offset)], device=proj.means2d.device)
+    return proj._replace(means2d=proj.means2d - shift), int(band_height)

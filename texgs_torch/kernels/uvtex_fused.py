@@ -138,9 +138,11 @@ def mlist_scan_vjp(table: torch.Tensor, uv_rows: torch.Tensor,
         t = table.detach().requires_grad_(True)
         u = uv_rows.detach().requires_grad_(True)
         blend, t_final, mlist, _ = mlist_scan(t, u, pairs, rays, gx, m)
-        d_table, d_uv = torch.autograd.grad(
-            (blend, t_final, mlist), (t, u),
-            (g_blend, g_t_final, g_mlist), allow_unused=True)
+        d_table = d_uv = None
+        if blend.requires_grad:  # else no tile has a pair
+            d_table, d_uv = torch.autograd.grad(
+                (blend, t_final, mlist), (t, u),
+                (g_blend, g_t_final, g_mlist), allow_unused=True)
     d_table = torch.zeros_like(table) if d_table is None else d_table
     d_uv = torch.zeros_like(uv_rows) if d_uv is None else d_uv
     d_table[:, list(NO_GRAD_COLS)] = 0.0

@@ -39,7 +39,7 @@ from texgs_torch.core.camera import Camera
 from texgs_torch.kernels.binning import (build_pairs, grid_shape,
                                          with_tile_order)
 from texgs_torch.kernels.cubemap import sample_cubemap
-from texgs_torch.kernels.project import ProjectedGaussians
+from texgs_torch.kernels.project import ProjectedGaussians, band_rows
 from texgs_torch.kernels.reference import (RasterOutput, compose,
                                            dense_blend, depth_sorted_visible)
 from texgs_torch.kernels.tile_raster import (assemble_image, build_gauss_table,
@@ -113,18 +113,24 @@ def build_uv_rows(tables: UVTexTables) -> torch.Tensor:
                       pad], dim=1).contiguous()
 
 
-def ray_constants(camera: Camera) -> np.ndarray:
+def ray_constants(camera: Camera, row_offset: Optional[int] = None) -> np.ndarray:
     """(3, 3) float32 rows [ax, by, c0] with the world ray direction
     d(px, py) = c0 + px*ax + py*by (unnormalized).
 
     ndc = (2 p + 1)/S - 1; d_cam = (ndc_x tanfovx, ndc_y tanfovy, 1);
-    d_world = Wmat @ d_cam with Wmat = world_view[:3, :3] (= R_c2w)."""
+    d_world = Wmat @ d_cam with Wmat = world_view[:3, :3] (= R_c2w).
+    row_offset: a band's first pixel row.  Band rendering makes py
+    band-local, so the offset is folded into c0 (c0 += row_offset * by)
+    and every ray formula downstream stays as it is; the NDC terms keep
+    the full ``camera.height`` (texgs uvtex_raster.py:109-126)."""
     Wm = np.asarray(camera.world_view, np.float32)[:3, :3]
     w, h = camera.width, camera.height
     ax = Wm @ np.array([2.0 * camera.tanfovx / w, 0.0, 0.0], np.float32)
     by = Wm @ np.array([0.0, 2.0 * camera.tanfovy / h, 0.0], np.float32)
     c0 = Wm @ np.array([camera.tanfovx * (1.0 / w - 1.0),
                         camera.tanfovy * (1.0 / h - 1.0), 1.0], np.float32)
+    if row_offset is not None:
+        c0 = c0 + np.float32(row_offset) * by
     return np.stack([ax, by, c0]).astype(np.float32)
 
 
@@ -237,7 +243,9 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
                     camera: Camera, bg: torch.Tensor, m: int = 32,
                     filter_mode: str = "bilinear", with_no_sh: bool = False,
                     m_tail: bool = False, backend: str = "auto",
-                    tex_backend: str = "auto") -> RasterOutput:
+                    tex_backend: str = "auto", normalize_depth: bool = True,
+                    row_offset: Optional[int] = None,
+                    band_height: Optional[int] = None) -> RasterOutput:
     """Full UV-texture rasterization with the exact texture term.
 
     backend, tex_backend: texgs's names (``resolve_backends``): the fused
@@ -252,6 +260,13 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
     blend pass suffices: ``clamp(.5+SH_rest) - .5`` rides as 3 extra blend
     channels and is subtracted from the composited image.  The kernel thus
     sees F = 10 blend channels with the no-SH image, else F = 7.
+    normalize_depth=False leaves the depth channel the blended sum (a
+    depth slice's, folded later; texgs gauss_sharded.py:263).
+    row_offset, band_height: render the band of rows [row_offset,
+    row_offset + band_height) as a short image (texgs :450-553): the
+    projected means move up by row_offset and c0 of the rays down by it
+    (``ray_constants``), so the kernels see band-local tiles only and no
+    kernel takes an argument for it.  A tiled path only.
     """
     from texgs_torch.kernels.raster import raster_pairs
     from texgs_torch.kernels.tex_term import tex_term
@@ -271,13 +286,19 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
                                 torch.as_tensor(camera.camera_center,
                                                 device=xyz.device))
     if path == "reference":
+        if row_offset is not None:
+            raise ValueError("band rendering needs a tiled backend, not "
+                             "reference")
         out = rasterize_uvtex_reference(proj, tables, texture, camera, bg,
-                                        extra_attrs, filter_mode=filter_mode)
+                                        extra_attrs, normalize_depth,
+                                        filter_mode=filter_mode)
         return _with_no_sh(out, with_no_sh, append_ns)
     height, width = camera.height, camera.width
+    if row_offset is not None:
+        proj, height = band_rows(proj, row_offset, band_height)
     pairs = build_pairs(proj.means2d, proj.depths, proj.radii, height, width)
     table = build_gauss_table(proj, extra_attrs)
-    uv_rows, rays = build_uv_rows(tables), ray_constants(camera)
+    uv_rows, rays = build_uv_rows(tables), ray_constants(camera, row_offset)
     gx = grid_shape(height, width)[1]
     # kernel A, or kernels 1, 2, 1' and 2', take the tiles heaviest first
     pairs = with_tile_order(pairs)
@@ -287,7 +308,8 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
     else:
         tiles_out, t_final, _ = raster_pairs(table, pairs, gx)
         mlist = mlist_pairs(table, uv_rows, pairs, rays, gx, m)
-    base = assemble_image(tiles_out, t_final, height, width, bg, n_extra)
+    base = assemble_image(tiles_out, t_final, height, width, bg, n_extra,
+                          normalize_depth)
     tex_img = tex_term(mlist, texture, height, width, filter_mode)
     if m_tail:
         tex_img = tex_img + tail_tex_term(mlist, t_final, texture, height,

@@ -3,10 +3,10 @@
 Port of texgs/render/render.py:22: SH colours -> projection and cull ->
 raster.  Returns the same keys.  The screen-space positional gradient is
 harvested by differentiating against ``ndc_offset`` (a zeros (N, 2)
-tensor with ``requires_grad``), in texgs's NDC units.  texgs's band
-rendering (``row_offset``), ``extra_attrs`` and ``pair_cap`` have no
-caller on the ported paths and are not ported: the tiled path keeps every
-pair (``pair_overflow`` is False).
+tensor with ``requires_grad``), in texgs's NDC units.  texgs's
+``extra_attrs`` and ``pair_cap`` have no caller on the ported paths and
+are not ported: the tiled path keeps every pair (``pair_overflow`` is
+False).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 
 from texgs_torch.core.camera import Camera
 from texgs_torch.kernels import project as proj_k
+from texgs_torch.kernels.project import band_rows
 from texgs_torch.kernels.reference import rasterize_reference
 from texgs_torch.kernels.tile_raster import rasterize_tiled
 
@@ -36,7 +37,9 @@ def render(viewpoint_camera: Camera, *,
            ndc_offset: Optional[torch.Tensor] = None,
            cov3d_precomp: Optional[torch.Tensor] = None,
            backend: str = "auto",
-           normalize_depth: bool = True) -> dict:
+           normalize_depth: bool = True,
+           row_offset: Optional[int] = None,
+           band_height: Optional[int] = None) -> dict:
     """Render one view.
 
     All Gaussian inputs are activated values (exp-scaling, normalised
@@ -50,7 +53,12 @@ def render(viewpoint_camera: Camera, *,
     (``kernels.reference.rasterize_reference``), on any device.  texgs's
     ``auto`` takes its oracle on the CPU for N <= 4096; the port's takes
     the tiled path on every device, so its CPU runs check what the card
-    runs."""
+    runs.
+
+    row_offset, band_height: render the band of rows [row_offset,
+    row_offset + band_height) as a short image (texgs.dist's row bands):
+    the projected means move up by row_offset (``project.band_rows``), so
+    the kernels see band-local tiles only."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     cam = viewpoint_camera
@@ -70,11 +78,14 @@ def render(viewpoint_camera: Camera, *,
         cam.tanfovy, scaling_modifier=scaling_modifier,
         cov3d_precomp=cov3d_precomp, ndc_offset=ndc_offset)
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
+    radii, height = proj.radii, cam.height
+    if row_offset is not None:
+        proj, height = band_rows(proj, row_offset, band_height)
     if backend == "reference":
-        out = rasterize_reference(proj, cam.height, cam.width, bg,
+        out = rasterize_reference(proj, height, cam.width, bg,
                                   normalize_depth=normalize_depth)
     else:
-        out = rasterize_tiled(proj, cam.height, cam.width, bg,
+        out = rasterize_tiled(proj, height, cam.width, bg,
                               normalize_depth=normalize_depth)
     return {
         "render": out.image,
@@ -82,8 +93,8 @@ def render(viewpoint_camera: Camera, *,
         "norm": out.norm,
         "alpha": out.alpha,
         "extra": out.extra,
-        "radii": proj.radii,
-        "visibility_filter": proj.radii > 0,
+        "radii": radii,
+        "visibility_filter": radii > 0,
         "n_pairs": out.n_pairs,
         "pair_overflow": out.overflowed,
     }

@@ -33,7 +33,10 @@ def uv_tex_render(viewpoint_camera: Camera, *,
                   with_no_sh: bool = False,
                   m_tail: bool = False,
                   backend: str = "auto",
-                  tex_backend: str = "auto") -> dict:
+                  tex_backend: str = "auto",
+                  normalize_depth: bool = True,
+                  row_offset: Optional[int] = None,
+                  band_height: Optional[int] = None) -> dict:
     """Render one view with per-intersection UV-mapped cubemap appearance.
 
     uvs: (N, 3) unit-sphere UV centers; grad_uvs: (N, 9) flattened
@@ -42,6 +45,8 @@ def uv_tex_render(viewpoint_camera: Camera, *,
     with_no_sh: also return ``render_no_sh``, the texture-only image,
     from the same blend pass.  backend, tex_backend: texgs's names, which
     pick the fused or the two-kernel path (uvtex_raster.resolve_backends).
+    normalize_depth, row_offset, band_height: as ``rasterize_uvtex``
+    takes them (a depth slice's unnormalised depth; a band of rows).
     """
     cam = viewpoint_camera
     dev = xyz.device
@@ -60,7 +65,8 @@ def uv_tex_render(viewpoint_camera: Camera, *,
         proj, scaling, rotation, xyz, uvs, grad_uvs, texture, shs,
         active_sh_degree, cam, bg_color, m=m, filter_mode=filter_mode,
         with_no_sh=with_no_sh, m_tail=m_tail, backend=backend,
-        tex_backend=tex_backend)
+        tex_backend=tex_backend, normalize_depth=normalize_depth,
+        row_offset=row_offset, band_height=band_height)
 
     return {
         "render": out.image,

@@ -136,14 +136,19 @@ class Gaussian3D:
                 "scaling": oc.scaling_lr, "rotation": oc.rotation_lr}
 
     def _render(self, camera: Camera, ndc_offset=None,
-                scaling_modifier: float = 1.0) -> dict:
+                scaling_modifier: float = 1.0,
+                row_offset: Optional[int] = None,
+                band_height: Optional[int] = None) -> dict:
+        """render of the model; with row_offset and band_height, the band
+        of those rows (texgs_torch.dist)."""
         st = self.state
         return render(camera, xyz=st.xyz, opacity=st.get_opacity(),
                       scaling=st.get_scaling(), rotation=st.get_rotation(),
                       features=st.get_features(),
                       active_sh_degree=self.active_sh_degree,
                       bg_color=self.bg, scaling_modifier=scaling_modifier,
-                      ndc_offset=ndc_offset)
+                      ndc_offset=ndc_offset, row_offset=row_offset,
+                      band_height=band_height)
 
     # ---------------------------------------------------------- training
     def oneup_sh_degree(self) -> None:
@@ -154,13 +159,11 @@ class Gaussian3D:
         tc = self.train_cfg
         return int(tc.densify_until_iter) if tc and tc.densify_until_iter else 0
 
-    def compute_loss(self, cur_iter: int, total_iter: int, viewpoint: Camera,
-                     render_unused, loss_cfg: Cfg):
-        """One training step on ``viewpoint`` (which carries its ground
-        truth).  Returns (total loss, stats, {}), the stats of this step
-        (``n_pairs`` included)."""
-        if cur_iter % 1000 == 0:
-            self.oneup_sh_degree()
+    def step_settings(self, cur_iter: int, viewpoint: Camera,
+                      loss_cfg: Cfg) -> tuple:
+        """What ``compute_loss`` trains with at ``cur_iter`` (after its SH
+        step): (flags, lambdas, lrs, apply_adam) as the sharded step
+        (``texgs_torch.dist.sharded.stage1_sharded_step``) takes them."""
         lc = loss_cfg
         flags = (
             bool(lc.lambda_alpha) and in_range(cur_iter, lc.alpha_range),
@@ -176,7 +179,21 @@ class Gaussian3D:
             cur_iter <= self._densify_until(),
         )
         lambdas = {k: float(lc.get_or(f"lambda_{k}", 0.0)) for k in LAMBDAS}
+        # on a surgery iteration the step is skipped and Adam's counts stay:
+        # densification replaces the parameters before the optimiser step
+        # in the reference (texgs :194-203)
+        return (flags, lambdas, self._lrs(cur_iter),
+                not self._surgery_planned(cur_iter))
 
+    def compute_loss(self, cur_iter: int, total_iter: int, viewpoint: Camera,
+                     render_unused, loss_cfg: Cfg):
+        """One training step on ``viewpoint`` (which carries its ground
+        truth).  Returns (total loss, stats, {}), the stats of this step
+        (``n_pairs`` included)."""
+        if cur_iter % 1000 == 0:
+            self.oneup_sh_degree()
+        flags, lambdas, lrs, apply_adam = self.step_settings(
+            cur_iter, viewpoint, loss_cfg)
         params = self.state.params_dict()
         for p in params.values():
             p.requires_grad_(True)
@@ -193,11 +210,8 @@ class Gaussian3D:
             loss.backward()
         if flags[6]:
             self.stats = densify.add_stats(self.stats, ndc.grad, out["radii"])
-        # on a surgery iteration the step is skipped and Adam's counts stay:
-        # densification replaces the parameters before the optimiser step
-        # in the reference (texgs :194-203)
-        if not self._surgery_planned(cur_iter):
-            self.adam.step(params, self._lrs(cur_iter))
+        if apply_adam:
+            self.adam.step(params, lrs)
         stats = {k: v.detach() for k, v in stats.items()}
         stats["n_pairs"] = out["n_pairs"]
         return stats["total_loss"], stats, {}

@@ -67,10 +67,16 @@ def stage3_loss_terms(image, depth, norm, alpha, image_ns, camera: Camera,
                       gt_image, gt_alpha, opacity_act, uv_net: UVNet,
                       inv_uv_net: Optional[InvUVNet], geo_emb,
                       generator: Optional[torch.Generator],
-                      n_inv_points: int, flags: tuple, lambdas: dict):
+                      n_inv_points: int, flags: tuple, lambdas: dict,
+                      inverse_grad_scale: float = 1.0):
     """Gated stage-3 loss from the rendered channels (texgs
     ``stage3_loss_terms``, :54-130).  ``image_ns`` is the no-SH image (None
-    unless the no-SH flag is on).  The inverse term picks up to
+    unless the no-SH flag is on).  ``inverse_grad_scale`` scales the
+    inverse term's gradient and keeps its value: the sharded steps compute
+    it on every rank of the render axes and sum the gradients over them
+    (texgs scales the UV parameters it is given, sharded.py:357-358; the
+    term's points are detached, so its gradient reaches the UV nets
+    only).  The inverse term picks up to
     ``n_inv_points`` pixels of alpha > 0.5 at random with ``generator``
     where texgs draws with ``jax.random`` and ``top_k``; below that many
     pixels it takes them all, as texgs does."""
@@ -128,7 +134,9 @@ def stage3_loss_terms(image, depth, norm, alpha, image_ns, camera: Camera,
                                             n_inv_points)
         linv = masked_cycle_loss(world, wmask,
                                  inv_uv_net(uv_net(world, geo_emb), geo_emb))
-        loss = loss + lambdas["inverse"] * linv
+        s = inverse_grad_scale
+        loss = loss + lambdas["inverse"] * (
+            linv if s == 1.0 else linv * s + linv.detach() * (1.0 - s))
         stats["Linv"] = linv
     stats["total_loss"] = loss
     return loss, stats
@@ -253,7 +261,11 @@ class TextureGaussian3D:
         uvs, jac = self.uv_net.forward_with_jac(xyz, self.geo_emb)
         return uvs, jac.reshape(-1, 9)
 
-    def _render(self, camera: Camera, with_no_sh: bool = True) -> dict:
+    def _render(self, camera: Camera, with_no_sh: bool = True,
+                row_offset: Optional[int] = None,
+                band_height: Optional[int] = None) -> dict:
+        """uv_tex_render of the model; with row_offset and band_height,
+        the band of those rows (texgs_torch.dist)."""
         act = self._activated()
         uvs, jac = self._uvs_and_jac(act["xyz"])
         return uv_tex_render(
@@ -266,15 +278,18 @@ class TextureGaussian3D:
             with_no_sh=with_no_sh,
             m_tail=bool(self.cfg.get_or("uvtex_m_tail", False)),
             backend=self.cfg.get_or("backend", "auto"),
-            tex_backend=self.cfg.get_or("tex_backend", "auto"))
+            tex_backend=self.cfg.get_or("tex_backend", "auto"),
+            row_offset=row_offset, band_height=band_height)
 
     # ---------------------------------------------------------- training
-    def compute_loss(self, cur_iter: int, total_iter: int, viewpoint: Camera,
-                     render_unused, loss_cfg: Cfg):
-        """One training step on ``viewpoint`` (which carries its ground
-        truth): render, the gated stage-3 losses, their gradients and the
-        range-gated Adam steps.  Returns (total loss, stats, {}), the
-        stats of this step (``n_pairs`` included)."""
+    def step_settings(self, cur_iter: int, viewpoint: Camera,
+                      loss_cfg: Cfg) -> tuple:
+        """What ``compute_loss`` trains with at ``cur_iter``: (flags,
+        lambdas, lrs, apply) as the sharded step
+        (``texgs_torch.dist.sharded.stage3_sharded_step``) takes them: the
+        loss flags, the loss weights, the learning rates by texgs's names
+        (xyz, opacity, scaling, rotation, shs, uv_net, inv_uv_net, tex) and
+        whether the Gaussian, UV and texture Adams step."""
         lc, oc = loss_cfg, self.optim_cfg
         flags = (
             bool(lc.lambda_dssim) and in_range(cur_iter, lc.rgb_range),
@@ -304,19 +319,31 @@ class TextureGaussian3D:
         scaling_reset_iter = bool(
             gauss_on and tc and tc.min_scale_reset_interval
             and g_iter % int(tc.min_scale_reset_interval) == 0)
-        uv_lr = self.uv_lr_fn(self._uv_step_count)
-        inv_lr = self.inv_uv_lr_fn(self._uv_step_count)
         # scaling gets lr 0 on min-scale reset iterations, as in texgs
-        g_lrs = {"xyz": self.xyz_lr_fn(g_iter), "opacity": oc.opacity_lr,
-                 "scaling": 0.0 if scaling_reset_iter else oc.scaling_lr,
-                 "rotation": oc.rotation_lr, "shs": oc.tex_lr / 20.0}
+        lrs = {"xyz": self.xyz_lr_fn(g_iter), "opacity": oc.opacity_lr,
+               "scaling": 0.0 if scaling_reset_iter else oc.scaling_lr,
+               "rotation": oc.rotation_lr, "shs": oc.tex_lr / 20.0,
+               "uv_net": self.uv_lr_fn(self._uv_step_count),
+               "inv_uv_net": self.inv_uv_lr_fn(self._uv_step_count),
+               "tex": oc.tex_lr}
+        return flags, lambdas, lrs, (gauss_on, uv_on, tex_on)
+
+    def compute_loss(self, cur_iter: int, total_iter: int, viewpoint: Camera,
+                     render_unused, loss_cfg: Cfg):
+        """One training step on ``viewpoint`` (which carries its ground
+        truth): render, the gated stage-3 losses, their gradients and the
+        range-gated Adam steps.  Returns (total loss, stats, {}), the
+        stats of this step (``n_pairs`` included)."""
+        flags, lambdas, lrs, (gauss_on, uv_on, tex_on) = self.step_settings(
+            cur_iter, viewpoint, loss_cfg)
+        g_lrs = {k: lrs[k] for k in self._gauss_leaves()}
         uv_leaves = self._uv_leaves()
-        uv_lrs = {k: inv_lr if k.startswith("inv_uv_net.") else uv_lr
-                  for k in uv_leaves}
+        uv_lrs = {k: lrs["inv_uv_net"] if k.startswith("inv_uv_net.")
+                  else lrs["uv_net"] for k in uv_leaves}
 
         groups = ((self.adam_g, self._gauss_leaves(), g_lrs, gauss_on),
                   (self.adam_uv, uv_leaves, uv_lrs, uv_on),
-                  (self.adam_tex, self._tex_leaves(), {"texture": oc.tex_lr},
+                  (self.adam_tex, self._tex_leaves(), {"texture": lrs["tex"]},
                    tex_on))
         for _, leaves, _, _ in groups:
             for p in leaves.values():
