@@ -176,6 +176,24 @@ one card.  Phases, in order; any failure exits non-zero:
                 it, three more steps timed beside the bytes the
                 collectives moved; then the same on one rank over NCCL,
                 within 1e-6 of the single-card step.
+ 24. pipeline -- python -m texgs_torch.tools.prod_pipeline --quick in
+                this process (scripts/run_prod_pipeline.py's three stages
+                of 750, 400 and 1,000 iterations at 800x600 on phase 21's
+                checker_prod, the production configs' model widths): each
+                stage's launches counted (stage 1: 1 and 1' once an
+                iteration, 1 once an evaluated view; stage 2: kernel 1 once
+                a camera, K5' and K5'' once a step, K5' once an
+                evaluation's point cloud; stage 3: A, A', B and B' once a
+                step, A and B once an evaluated view, K5' and K5'' once a
+                step of the inverse loss; kernels 2 and 2' never), each
+                stage's seconds and peak device memory; A, A', B and B'
+                against their plain versions on the last stage-3 step's
+                arguments (A's uv slots off the plain version's on flat
+                Gaussians held against the float64 uv, and the route
+                shown to refuse 40 slots' uv turned by 0.02 rad);
+                pipeline_prod_metrics.json with texgs's keys
+                and finite PSNRs; the final stage-1 and stage-3 test PSNRs
+                at least the first card reading less 1.5 dB.
 
 The line before the last is a JSON object with one entry per kernel
 (eleven); the last line is {"ok": true, "device": {...}}.
@@ -188,6 +206,13 @@ numpy's and torch's generators, and each stage model's).
     python3 chip_smoke.py --dist
 
 runs phases 1-3 and 23 alone.
+
+    python3 chip_smoke.py --prod-full
+
+runs phases 1 and 2, then phase 24 at the production schedules (7,500 +
+4,000 + 10,000 iterations, the dataset written anew) without its PSNR
+gates, and prints its record: the metrics, each stage's seconds, peak
+memory, launches and every evaluation, and stage 3's pairs a step.
 """
 
 from __future__ import annotations
@@ -401,7 +426,7 @@ def check_close(torch, name, got, want, atol, rtol=0.0, max_off=0,
     return max_err
 
 
-def check_kernel_a(torch, got, want):
+def check_kernel_a(torch, got, want, exact_uv=None):
     """Kernel A against its plain version, pixel by pixel.
 
     A pixel is off if a blend channel, its T_final or an M-list value lies
@@ -411,16 +436,22 @@ def check_kernel_a(torch, got, want):
     stop may stop one Gaussian apart: that moves its channels and T by
     less than 0.05 (the entry's weight is below 1e-2) and adds or drops its
     last slot.  At most MAX_OFF_PIXELS pixels may be off, and no blend
-    channel, T_final or slot weight anywhere by more than 0.05.  Returns
-    the max abs error over blend, T_final and slots."""
+    channel, T_final or slot weight anywhere by more than 0.05.  With
+    `exact_uv`, a slot whose uv alone lies beyond the plain version's is
+    held instead against the exact value (``exact_uv(got, want, slots)``
+    returns the slots still off).  Returns the max abs error over blend,
+    T_final and slots."""
     (blend, t_fin, mlist, n_eval), (blend_w, t_w, mlist_w, n_eval_w) = got, want
 
     def beyond(g, w, atol):
         return (g - w).abs() > atol + 1e-4 * w.abs()
 
+    uv_off = beyond(mlist[..., 1:], mlist_w[..., 1:], 1e-5).any(-1)
+    if exact_uv is not None and bool(uv_off.any()):
+        uv_off = exact_uv(got, want, uv_off)
     off = (beyond(blend, blend_w, 1e-5).any(-1) | beyond(t_fin, t_w, 1e-6)
-           | beyond(mlist, mlist_w, 1e-5).flatten(2).any(-1)
-           | (n_eval != n_eval_w))
+           | beyond(mlist[..., 0], mlist_w[..., 0], 1e-5).any(-1)
+           | uv_off.any(-1) | (n_eval != n_eval_w))
     errs = {"blend": (blend - blend_w).abs().max().item(),
             "T_final": (t_fin - t_w).abs().max().item(),
             "slot w": (mlist[..., 0] - mlist_w[..., 0]).abs().max().item(),
@@ -437,6 +468,180 @@ def check_kernel_a(torch, got, want):
     return max(errs.values())
 
 
+# unit roundoff of float32
+F32_U = 2.0 ** -24
+
+
+def intersect_error_bound(torch, d, rows, d_err):
+    """A bound on the error of any float32 evaluation of
+    uvtex_raster.intersect_uv's unit uv, for float64 rays d (k, 3), uv rows
+    (k, >= 21) and the absolute error d_err (k, 3) of each ray component
+    as float32 forms it: every product and sum rounds once (unit roundoff
+    U), in any order, with or without fused multiply-adds; first order in
+    U, and infinite where the intersection's denominator is 0.  Where t*
+    lies beyond the clamp to [0, T_STAR_MAX] by more than its own error
+    bound, every evaluation clamps it to the same end, and its error drops
+    out.  For a flat Gaussian (the inverse covariance of the uv row reaches
+    1e15 on a trained model) numerator and denominator are sums of terms
+    far larger than themselves, and base_uv and t* J d nearly cancel, so
+    the unit uv of a float32 evaluation may be 1e-3 to 1 off."""
+    from texgs_torch.kernels.uvtex_raster import T_STAR_MAX
+
+    U = F32_U
+    r = rows
+    d_abs, e = d.abs(), d_err
+    num = (d * r[:, 0:3]).sum(-1)
+    e_num = (3 * U * (d_abs * r[:, 0:3].abs()).sum(-1)
+             + (e * r[:, 0:3].abs()).sum(-1))
+    # den = d^T S d
+    sym = torch.stack([r[:, [3, 4, 5]], r[:, [4, 6, 7]], r[:, [5, 7, 8]]], 1)
+    den = (d * (sym * d[:, None, :]).sum(-1)).sum(-1)
+    s_abs = (sym.abs() * d_abs[:, None, :]).sum(-1)
+    e_den = 8 * U * (d_abs * s_abs).sum(-1) + 2 * (s_abs * e).sum(-1)
+    t_raw = num / den
+    e_t = (e_num + t_raw.abs() * e_den) / den.abs() + t_raw.abs() * U
+    clamped = (t_raw - e_t > T_STAR_MAX) | (t_raw + e_t < 0)
+    e_t = torch.where(clamped, torch.zeros_like(e_t), e_t)
+    t = t_raw.clamp(0.0, T_STAR_MAX)[:, None]
+    jac = r[:, 12:21].reshape(-1, 3, 3)
+    jd = (jac * d[:, None, :]).sum(-1)
+    e_jd = (3 * U * (jac.abs() * d_abs[:, None, :]).sum(-1)
+            + (jac.abs() * e[:, None, :]).sum(-1))
+    u = r[:, 9:12] + t * jd
+    e_u = (2 * U * (r[:, 9:12].abs() + (t * jd).abs())
+           + jd.abs() * e_t[:, None] + t * e_jd)
+    return 2 * e_u.norm(dim=-1) / u.norm(dim=-1) + 4 * U
+
+
+# the exact-uv route of check_kernel_a: at most this many slots, on at
+# most this many Gaussians, may go through it (the full pipeline's last
+# stage-3 step sent 1,563 slots on 69 Gaussians, the quick one's 191-312
+# on 33-53); a float32 bound from EXACT_UV_VACUOUS on says nothing of a
+# unit uv, and at most EXACT_UV_MAX_VACUOUS slots may have one (10 of 191
+# on the quick pipeline's last step, before the bound knew the clamp)
+EXACT_UV_MAX_SLOTS = 2000
+EXACT_UV_MAX_GAUSSIANS = 100
+EXACT_UV_VACUOUS = 0.5
+EXACT_UV_MAX_VACUOUS = 100
+
+
+def exact_uv_check(torch, a_args):
+    """An ``exact_uv`` for check_kernel_a on kernel A's arguments
+    `a_args`: each slot whose uv differs between kernel A and the plain
+    version is traced to its Gaussian (the one of its tile whose plain
+    intersect_uv is nearest the plain slot's), its unit uv evaluated in
+    float64 and bounded by ``intersect_error_bound``.  A slot stays off
+    where the kernel's uv lies beyond atol 1e-5 + rtol 1e-4 + that bound of
+    the exact value; the plain version's uv must lie within it (else the
+    bound is no bound, and the check fails).  A bound of EXACT_UV_VACUOUS
+    or more holds nothing, so at most EXACT_UV_MAX_VACUOUS slots may have
+    one; every routed kernel uv must be a unit vector (within 1e-3), every
+    bound finite, and the route may take at most EXACT_UV_MAX_SLOTS slots
+    on EXACT_UV_MAX_GAUSSIANS Gaussians."""
+    from texgs_torch.kernels.tile_raster import TILE
+    from texgs_torch.kernels.uvtex_fused import _tile_rays
+    from texgs_torch.kernels.uvtex_raster import intersect_uv
+
+    table, uv_rows, pairs, rays, gx, m = a_args[:6]
+    device = table.device
+    n_tiles = pairs.tile_counts.numel()
+    rays64 = np.asarray(rays, np.float64)
+
+    def exact_uv(got, want, slots):
+        mlist, mlist_w = got[2], want[2]
+        _, _, d32 = _tile_rays(rays, n_tiles, gx, device)
+        _, _, d64 = _tile_rays(rays64, n_tiles, gx, device)
+        ti, pi, si = torch.nonzero(slots, as_tuple=True)
+        gauss = []
+        for t, p, s in zip(ti.tolist(), pi.tolist(), si.tolist()):
+            g = pairs.pair_gauss[int(pairs.tile_start[t]):
+                                 int(pairs.tile_end[t])].long()
+            dist = (intersect_uv(d32[t, p], uv_rows[g])
+                    - mlist_w[t, p, s, 1:]).abs().max(-1).values
+            gauss.append(g[torch.argmin(dist)])
+        rows = uv_rows[torch.stack(gauss)].double()
+        d = d64[ti, pi]
+        # the pixel's coordinates, and the error of its ray in float32
+        px = ((ti % gx) * TILE + pi % TILE).double()[:, None]
+        py = ((ti // gx) * TILE + pi // TILE).double()[:, None]
+        r = torch.as_tensor(rays64, device=device)
+        d_err = 4 * F32_U * (r[2].abs() + (px * r[0]).abs()
+                             + (py * r[1]).abs())
+        exact = intersect_uv(d, rows)
+        f32 = intersect_error_bound(torch, d, rows, d_err)
+        tol = 1e-5 + 1e-4 * exact.abs() + f32[:, None]
+        err_k = (mlist[ti, pi, si, 1:].double() - exact).abs()
+        err_p = (mlist_w[ti, pi, si, 1:].double() - exact).abs()
+        still = (err_k > tol).any(-1)
+        n_gauss = len(set(int(g) for g in gauss))
+        vacuous = f32 >= EXACT_UV_VACUOUS
+        mean_k = err_k.max(-1).values[vacuous].mean().item()
+        mean_p = err_p.max(-1).values[vacuous].mean().item()
+        unit_err = (mlist[ti, pi, si, 1:].double().norm(dim=-1) - 1).abs()
+        log(f"  A: {len(gauss)} slots' uv beyond the plain version's, on "
+            f"{n_gauss} Gaussians, held against the exact uv (float64): "
+            f"kernel max abs err {err_k.max().item():.3e}, plain "
+            f"{err_p.max().item():.3e}; float32 bound median "
+            f"{f32.median().item():.3e}, max {f32.max().item():.3e}; "
+            f"{int(still.sum())} slots of the kernel and "
+            f"{int((err_p > tol).any(-1).sum())} of the plain version "
+            f"beyond it; {int(vacuous.sum())} slots' bound >= "
+            f"{EXACT_UV_VACUOUS:g}, where the mean error is kernel "
+            f"{mean_k:.3e}, plain {mean_p:.3e}; kernel uv norms within "
+            f"{unit_err.max().item():.3e} of 1")
+        if len(gauss) > EXACT_UV_MAX_SLOTS or n_gauss > EXACT_UV_MAX_GAUSSIANS:
+            fail(f"the exact-uv route took {len(gauss)} slots on {n_gauss} "
+                 f"Gaussians (at most {EXACT_UV_MAX_SLOTS} on "
+                 f"{EXACT_UV_MAX_GAUSSIANS})")
+        if not bool(torch.isfinite(f32).all()):
+            fail("the float32 bound of the uv intersection is not finite")
+        if bool((err_p > tol).any()):
+            fail("the float32 bound of the uv intersection does not hold "
+                 "for the plain version")
+        if int(vacuous.sum()) > EXACT_UV_MAX_VACUOUS:
+            fail(f"{int(vacuous.sum())} slots' float32 bound is "
+                 f">= {EXACT_UV_VACUOUS:g} (at most {EXACT_UV_MAX_VACUOUS})")
+        if not bool((unit_err <= 1e-3).all()):
+            fail("kernel A's uv is not a unit vector")
+        out = torch.zeros_like(slots)
+        out[ti[still], pi[still], si[still]] = True
+        return out
+    return exact_uv
+
+
+def exact_uv_control(torch, got, want, exact_uv, n=40, angle=0.02):
+    """check_kernel_a with `exact_uv` must refuse kernel A's output `got`
+    with the first slot's uv of `n` pixels (spread over the frame, where
+    kernel and plain version agree) turned by `angle` radians: a unit uv
+    still, off by about 0.01 or more in a component.  Fails if it is
+    taken."""
+    blend, t_fin, mlist, n_eval = got
+    ml, ml_w = mlist[..., 0, :], want[2][..., 0, :]
+    agree = (ml[..., 0] != 0) & ((ml - ml_w).abs() <= 1e-6).all(-1)
+    where = torch.nonzero(agree)
+    if where.shape[0] < n:
+        fail(f"only {where.shape[0]} slots for the exact-uv control")
+    where = where[torch.linspace(0, where.shape[0] - 1, n,
+                                 device=where.device).long()]
+    t, p = where[:, 0], where[:, 1]
+    uv = mlist[t, p, 0, 1:]
+    axis = torch.zeros_like(uv)
+    axis[torch.arange(n, device=uv.device), uv.abs().argmin(-1)] = 1
+    side = torch.linalg.cross(uv, axis)
+    side = side / side.norm(dim=-1, keepdim=True)
+    bad = mlist.clone()
+    bad[t, p, 0, 1:] = uv * math.cos(angle) + side * math.sin(angle)
+    try:
+        check_kernel_a(torch, (blend, t_fin, bad, n_eval), want, exact_uv)
+    except SystemExit as e:
+        if "kernel A disagrees" not in str(e):
+            raise
+        log(f"  A: the exact-uv route refused {n} slots' uv turned by "
+            f"{angle:g} rad, as it must")
+        return
+    fail(f"the exact-uv route took {n} slots' uv turned by {angle:g} rad")
+
+
 @contextlib.contextmanager
 def swapped(module, name, fn):
     """module.name is fn inside the block."""
@@ -449,18 +654,20 @@ def swapped(module, name, fn):
 
 
 @contextlib.contextmanager
-def recording(module, name, seen, clone=False):
+def recording(module, name, seen, clone=False, when=None):
     """module.name records its positional arguments (tensors detached from
     any graph, and copied with `clone`, for a parameter that a later step
     updates in place) in seen[name] and calls through, inside the block,
-    which gets the recorder.  A kernel wrapper counts its launches through its
-    module's global name, so while the recorder is swapped in for a kernel
-    wrapper, the recorder's `launches` counts that kernel's launches."""
+    which gets the recorder; with `when`, only on calls where when() is
+    true.  A kernel wrapper counts its launches through its module's global
+    name, so while the recorder is swapped in for a kernel wrapper, the
+    recorder's `launches` counts that kernel's launches."""
     fn = getattr(module, name)
 
     def wrapper(*args):
-        seen[name] = tuple((a.detach().clone() if clone else a.detach())
-                           if hasattr(a, "detach") else a for a in args)
+        if when is None or when():
+            seen[name] = tuple((a.detach().clone() if clone else a.detach())
+                               if hasattr(a, "detach") else a for a in args)
         return fn(*args)
     wrapper.launches = 0
     with swapped(module, name, wrapper):
@@ -778,15 +985,20 @@ def restricted_tiles(pairs, keep):
 def plain_backward_tiles(torch, pairs, device, chunk):
     """The tiles on which a plain M-list backward (autograd through
     uvtex_fused.mlist_scan, about 24 (tiles, 256, chunk) f32 intermediates
-    per chunk) fits in the card's free memory: all, or every fourth.
+    per chunk) fits in the card's free memory: all, every fourth, or
+    sparser.
     Returns (bool mask over tiles, the note to log)."""
     n_tiles = pairs.tile_counts.numel()
     n_chunks = -(-int(pairs.tile_counts.max()) // chunk)
     need = n_chunks * 24 * n_tiles * 256 * chunk * 4
     free = torch.cuda.mem_get_info()[0]
-    keep = torch.ones(n_tiles, dtype=torch.bool, device=device)
+    stride = 1
     if need > 0.8 * free:
-        keep = torch.arange(n_tiles, device=device) % 4 == 0
+        # every fourth tile, or sparser where that would not fit: on a
+        # trained model's step (1.17 M pairs) every fourth tile peaked at
+        # 1.66 times the estimate
+        stride = max(4, math.ceil(2 * need / (0.8 * free)))
+    keep = torch.arange(n_tiles, device=device) % stride == 0
     return keep, (f"{int(keep.sum())} of {n_tiles} tiles (plain backward "
                   f"needs about {need / 1e9:.1f} GB, {free / 1e9:.1f} GB free)")
 
@@ -1975,6 +2187,214 @@ def prod_scene_phase(torch, device, work_dir, card):
     return write_s, read_s, train_s
 
 
+# phase 24: texgs_torch.tools.prod_pipeline --quick (750 + 400 + 1,000
+# iterations at 800x600) on phase 21's scene.  Its final stage-1 and
+# stage-3 test PSNRs must reach the first card reading of that run less
+# PIPELINE_MARGIN_DB (the tiny golden's margin): the first run of the
+# --quick pipeline on the card, an NVIDIA H100 80GB HBM3 at 700 W
+# (2026-10-17); a second run read 30.76 and 19.32 dB.
+PIPELINE_FIRST_READING = {"stage1": 30.72, "texture": 18.73}
+PIPELINE_MARGIN_DB = 1.5
+# the keys of scripts/run_prod_pipeline.py's write_metrics, and of each of
+# its evaluations
+PIPELINE_KEYS = {"stage1", "uv_map", "texture", "stage3_minus_stage1_db"}
+EVAL_KEYS = {"iter", "l1", "psnr", "ssim"}
+# each stage's run name and config
+PIPELINE_STAGES = {"prod_stage1": "configs/prod_stage1.yaml",
+                   "prod_uv_map": "configs/prod_uv_map.yaml",
+                   "prod_texture": "configs/prod_texture.yaml"}
+
+
+def stage_evaluations(out, run):
+    """Every '[ITER n] Evaluating <set>: ...' line of a stage's log, as
+    {set: {iteration: (L1, PSNR, SSIM)}}."""
+    from texgs_torch.tools.prod_pipeline import EVAL
+
+    evals = {}
+    with open(f"{out}/{run}/latest/TextureGS.log") as f:
+        for line in f:
+            mm = EVAL.search(line)
+            if mm:
+                evals.setdefault(mm.group(2), {})[int(mm.group(1))] = tuple(
+                    float(mm.group(i)) for i in (3, 4, 5))
+    return evals
+
+
+def expected_pipeline_launches(out, run, n_train, n_test):
+    """The launches each kernel must make in a stage of the pipeline, from
+    the stage's runtime config: a step's, and the evaluations' (n_test
+    test views and 5 train views each, and a point cloud)."""
+    import os
+
+    from texgs_torch.config import load_config
+
+    name = os.path.basename(PIPELINE_STAGES[run])
+    cfg = load_config(f"{out}/_run_cfgs/{name}")
+    iters = int(cfg.train_cfg.num_iterations)
+    evals = len(set(cfg.train_cfg.visual_iters))
+    views = evals * (n_test + 5)
+    zero = dict.fromkeys(("raster", "raster_bwd", "uvtex_mlist",
+                          "uvtex_mlist_bwd", "uvtex_fused", "uvtex_fused_bwd",
+                          "tex_term", "tex_term_bwd", "hash_encode",
+                          "hash_encode_bwd", "hash_gather"), 0)
+    if run == "prod_stage1":
+        return iters, dict(zero, raster=iters + views, raster_bwd=iters)
+    if run == "prod_uv_map":
+        # kernel 1 once a camera (the render cache); the inverse net's
+        # point cloud at each evaluation
+        return iters, dict(zero, raster=n_train + n_test,
+                           hash_encode=iters + evals, hash_encode_bwd=iters)
+    # the inverse loss runs the hash grid on iterations (start, end]
+    inverse = max(iters - int(cfg.loss_cfg.inverse_range[0]), 0)
+    return iters, dict(zero, uvtex_fused=iters + views, uvtex_fused_bwd=iters,
+                       tex_term=iters + views, tex_term_bwd=iters,
+                       hash_encode=inverse, hash_encode_bwd=inverse)
+
+
+def prod_pipeline_phase(torch, device, work_dir, card, full=False):
+    """Phase 24 (see the module docstring), or with `full` the whole
+    pipeline at its production schedules with the dataset written anew.
+    Returns its record: the metrics file, each stage's seconds, peak
+    device memory, launches and evaluations, and stage 3's pair counts."""
+    import os
+
+    from texgs_torch.kernels import raster as kr
+    from texgs_torch.kernels import tex_term as kt
+    from texgs_torch.kernels import uvtex_fused as kf
+    from texgs_torch.kernels import uvtex_mlist as km
+    from texgs_torch.tools import prod_pipeline as pp
+    from texgs_torch.train.texture_gaussian3d import TextureGaussian3D
+
+    out = f"{work_dir}/prod_pipeline"
+    if not full:
+        # phase 21 wrote checker_prod with the pipeline's own arguments
+        if PROD_SCENE != pp.DATASET_ARGS:
+            fail("phase 21's scene is not the pipeline's")
+        os.makedirs(f"{out}/data")
+        os.symlink(f"{work_dir}/checker_prod", f"{out}/data/checker_prod")
+
+    # stage 3's pair count at every step, and the arguments of kernels A'
+    # and B' on its last step (B''s texture is updated in place after it)
+    pairs_at, last, seen = {}, [False], {}
+    compute_loss = TextureGaussian3D.compute_loss
+
+    def counted_loss(self, cur_iter, total_iter, *args):
+        last[0] = cur_iter == total_iter
+        try:
+            loss, stats, extra = compute_loss(self, cur_iter, total_iter,
+                                              *args)
+        finally:
+            last[0] = False
+        pairs_at[cur_iter] = int(stats["n_pairs"])
+        return loss, stats, extra
+
+    records = {}
+    run_stage = pp.run_stage
+    with swapped(TextureGaussian3D, "compute_loss", counted_loss), \
+            recording(kf, "fused_pairs_backward", seen, clone=True,
+                      when=lambda: last[0]) as rec_a, \
+            recording(kt, "tex_term_backward", seen, clone=True,
+                      when=lambda: last[0]) as rec_b:
+        counters = {"raster": kr.raster_pairs,
+                    "raster_bwd": kr.raster_pairs_backward,
+                    "uvtex_mlist": km.mlist_pairs,
+                    "uvtex_mlist_bwd": km.mlist_pairs_backward,
+                    "uvtex_fused": kf.fused_pairs, "uvtex_fused_bwd": rec_a,
+                    "tex_term": kt.tex_term, "tex_term_bwd": rec_b,
+                    **hash_counters()}
+
+        def counted_stage(name, fn, argv, dev):
+            for c in counters.values():
+                c.launches = 0
+            record = run_stage(name, fn, argv, dev)
+            record["launches"] = {k: c.launches for k, c in counters.items()}
+            records[name] = record
+            return record
+
+        argv = ["--workspace", out, "--device", device.type]
+        with swapped(pp, "run_stage", counted_stage):
+            result = pp.main(argv if full else ["--quick", *argv])
+    if set(seen) != {"fused_pairs_backward", "tex_term_backward"}:
+        fail(f"the pipeline's last stage-3 step called {sorted(seen)}")
+
+    metrics = result["metrics"]
+    key = "full" if full else f"quick_div{pp.QUICK_DIV}"
+    with open(f"{out}/pipeline_prod_metrics.json") as f:
+        written = json.load(f)
+    entry = written.get(key, {})
+    if written != metrics or set(entry) != PIPELINE_KEYS:
+        fail(f"pipeline_prod_metrics.json holds {written}, not texgs's keys")
+    for stage in ("stage1", "uv_map", "texture"):
+        for split in ("test", "train"):
+            ev = entry[stage].get(split, {})
+            if set(ev) != EVAL_KEYS or not math.isfinite(ev["psnr"]):
+                fail(f"the pipeline's {stage} {split} evaluation is {ev}")
+
+    scene = pp.DATASET_ARGS
+    n_train, n_test = (int(scene[scene.index(k) + 1])
+                       for k in ("--views", "--test_views"))
+    evals = {}
+    for run in PIPELINE_STAGES:
+        iters, want = expected_pipeline_launches(out, run, n_train, n_test)
+        got = records[run]["launches"]
+        evals[run] = stage_evaluations(out, run)
+        log(f"[pipeline] {run}: {iters} iterations in "
+            f"{records[run]['seconds']:.1f} s, peak "
+            f"{records[run].get('peak_gib', math.nan):.3f} GiB, "
+            f"{records[run].get('left_gib', math.nan):.3f} GiB left after "
+            "it; launches "
+            f"{got}; evaluations {evals[run]}")
+        for name, n in want.items():
+            if got[name] != n:
+                fail(f"pipeline {run}: kernel {name} launched {got[name]} "
+                     f"times, expected {n}")
+
+    # kernels A, A', B and B' on the last stage-3 step's arguments
+    a_args, b_args = seen["fused_pairs_backward"], seen["tex_term_backward"]
+    pairs, m = a_args[2], a_args[5]
+    mlist, texture, _, height, width, mode = b_args[:6]
+    log(f"[pipeline kernels] on the last stage-3 step's arguments: "
+        f"{int(pairs.n_pairs)} pairs over {pairs.tile_counts.numel()} tiles "
+        f"(max {int(pairs.tile_counts.max())} a tile), m = {m}")
+    with torch.no_grad():
+        got_a = kf.fused_pairs(*a_args[:6])
+        want_a = kf.mlist_scan(*a_args[:6])
+        exact_uv = exact_uv_check(torch, a_args)
+        err = {"A": check_kernel_a(torch, got_a, want_a, exact_uv)}
+        exact_uv_control(torch, got_a, want_a, exact_uv)
+        del got_a, want_a
+        err["B"] = check_close(
+            torch, "B (last stage-3 step)",
+            kt.tex_term(mlist, texture, height, width, mode),
+            kt.mlist_tex_term(mlist, texture, height, width, mode),
+            atol=2e-5, rtol=1e-4)
+    err["A'"] = check_a_prime(torch, a_args, "A' (last stage-3 step)")[0]
+    err["B'"] = check_b_prime(torch, b_args, "B' (last stage-3 step)")[0]
+
+    s1 = entry["stage1"]["test"]["psnr"]
+    s3 = entry["texture"]["test"]["psnr"]
+    # the mean pair count of each of 20 windows of stage-3 steps
+    its = sorted(pairs_at)
+    span = max(1, len(its) // 20)
+    curve = {its[k]: int(np.mean([pairs_at[i] for i in its[k:k + span]]))
+             for k in range(0, len(its), span)}
+    record = {"metrics": metrics, "stages": records, "evaluations": evals,
+              "stage3_pairs": {it: pairs_at[it] for it in
+                               sorted(evals["prod_texture"].get("test", {}))
+                               if it in pairs_at},
+              "stage3_pairs_mean": curve, "kernel_err": err, "card": card}
+    log(f"[pipeline] {key}: stage-1 test {s1:.2f} dB, stage-3 test "
+        f"{s3:.2f} dB; stage-3 pairs at its evaluations "
+        f"{record['stage3_pairs']}; {card}")
+    if not full:
+        for stage, got in (("stage1", s1), ("texture", s3)):
+            floor = PIPELINE_FIRST_READING[stage] - PIPELINE_MARGIN_DB
+            if not got >= floor:
+                fail(f"the quick pipeline's {stage} test PSNR {got:.2f} dB "
+                     f"is below {floor:.2f}")
+    return record
+
+
 def check_kernel_2(torch, got, want):
     """Kernel 2 against its plain version, pixel by pixel, as check_kernel_a
     holds kernel A's M-lists: a pixel is off if a slot value lies beyond
@@ -3124,6 +3544,9 @@ def main(argv=None) -> int:
                         help="stage 3's M-list length in those runs")
     parser.add_argument("--dist", action="store_true",
                         help="run phases 1-3 and 23 (texgs_torch.dist) only")
+    parser.add_argument("--prod-full", action="store_true",
+                        help="run phases 1 and 2, then the production "
+                             "pipeline at its full schedules only")
     args = parser.parse_args(argv)
 
     # ---------------------------------------------------------- 1. device
@@ -3169,6 +3592,17 @@ def main(argv=None) -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+
+    if args.prod_full:
+        with tempfile.TemporaryDirectory() as work_dir:
+            record = prod_pipeline_phase(torch, device, work_dir, card,
+                                         full=True)
+        log(json.dumps(record))
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # ----------------------------------------------------------- 3. setup
     t0 = time.perf_counter()
@@ -3384,6 +3818,11 @@ def main(argv=None) -> int:
         measure_phase(torch, device, work_dir)
         torch.cuda.empty_cache()
         dist_phase(torch, device, sd0, cams, gt0, work_dir, card)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pipeline = prod_pipeline_phase(torch, device, work_dir, card)
+        log(f"[pipeline] phase 24 in {time.perf_counter() - t0:.1f} s: "
+            + json.dumps(pipeline["metrics"]))
     log(f"[launches] device launches of one step under torch.profiler: "
         f"stage 3 {step3_launches}, stage 2 {step2_launches}")
     log(card)

@@ -31,6 +31,7 @@ from texgs_torch.data import readers
 from texgs_torch.data.scene import Scene, load_camera
 from texgs_torch.io import ply as plyio
 from texgs_torch.utils.graphics import qvec2rotmat
+from tests.torch_threads import one_thread  # noqa: F401
 
 LOG = logging.getLogger("texgs-torch-readers")
 ARRAYS = ("image", "normal", "alpha", "depth")

@@ -20,6 +20,7 @@ from texgs.train import optim as jopt
 from texgs_torch.core.state import GaussianState
 from texgs_torch.train import densify as td
 from texgs_torch.train import optim as topt
+from tests.torch_threads import one_thread  # noqa: F401
 
 N = 256
 KEYS = ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")

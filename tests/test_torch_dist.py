@@ -43,19 +43,12 @@ from texgs.render.uv_tex_render import uv_tex_render as jax_uv_tex_render
 from texgs_torch.dist import collectives, gauss_sharded, tile_parallel
 from texgs_torch.render.render import render
 from texgs_torch.render.uv_tex_render import uv_tex_render
+from tests.torch_threads import one_thread  # noqa: F401
 
 N, W, H, BAND_H = 256, 48, 40, 32
 GAUSS_NAMES = ("xyz", "opacity", "scaling", "rotation", "features")
 BG = np.array([0.2, 0.1, 0.3], np.float32)
 ROW_OFFSETS = (0, BAND_H)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("height,n_bands", [(64, 4), (600, 4), (600, 2),

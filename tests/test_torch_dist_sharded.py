@@ -1,10 +1,10 @@
 """The sharded steps of texgs_torch.dist over gloo ranks on the CPU.
 
-One module fixture spawns the ranks once, a world of 2 and a world of 4
-at the same time (the spawn start method, one torch thread each, free
-localhost ports), while this process runs texgs's sharded steps on its
-virtual 8-device CPU mesh; the ranks write their results (rank 0) to .npz
-files that the tests read.  Inputs are made here from seeds and handed to
+One module fixture runs texgs's sharded steps on this process's virtual
+8-device CPU mesh, then spawns the ranks once, a world of 2 and then a
+world of 4 (the spawn start method, one torch thread each, free localhost
+ports); the ranks write their results (rank 0) to .npz files that the
+tests read.  Inputs are made here from seeds and handed to
 the ranks in a pickle: 256 Gaussians at SH degree 1, two 48x40 views
 (40 rows: the last of two bands is padded) whose ground truth is the
 port's dense-oracle render, the colours moved off it; a stage-3 model with
@@ -47,6 +47,7 @@ import pytest
 import torch
 
 from texgs_torch.train.optim import flatten_tree
+from tests.torch_threads import one_thread  # noqa: F401
 
 # JAX and texgs are imported inside the functions that run texgs: the
 # spawned ranks import this module to reach rank_main and need neither
@@ -512,16 +513,17 @@ def runs(tmp_path_factory):
     with open(in_path, "wb") as f:
         pickle.dump(inputs, f)
     os.environ.setdefault("OMP_NUM_THREADS", "1")
-    contexts = [mp.start_processes(
-        rank_main, args=(world, free_port(), str(in_path),
-                         str(tmp / f"world{world}.npz")),
-        nprocs=world, start_method="spawn", join=False) for world in (2, 4)]
-    try:
-        want = jax_runs(*jax_objs)
-    finally:
-        for ctx in contexts:
-            while not ctx.join():
-                pass
+    # texgs's programs first, then one world after the other, so that no
+    # rank starts (each imports torch and builds its models) while JAX
+    # compiles: the suite's other workers share the same cores
+    want = jax_runs(*jax_objs)
+    for world in (2, 4):
+        ctx = mp.start_processes(
+            rank_main, args=(world, free_port(), str(in_path),
+                             str(tmp / f"world{world}.npz")),
+            nprocs=world, start_method="spawn", join=False)
+        while not ctx.join():
+            pass
     got = {}
     for world in (2, 4):
         with np.load(tmp / f"world{world}.npz") as z:

@@ -25,6 +25,7 @@ from texgs_torch.nets.hash_encode import (encode_backward_plain, encode_plain,
                                           indices_and_weights,
                                           level_resolution)
 from texgs_torch.nets.hashgrid import HashGrid
+from tests.torch_threads import one_thread  # noqa: F401
 
 # (levels, features, log2 table size): configs/'s grid, and a narrow one
 SHAPES = {"L8F4T4096": (8, 4, 12), "L4F2T1024": (4, 2, 10)}

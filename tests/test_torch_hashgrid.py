@@ -24,6 +24,7 @@ from texgs_torch.nets.hash_gather import gather_plain, hash_gather
 from texgs_torch.nets.hashgrid import (HashGrid, indices_and_weights,
                                        level_resolution)
 from texgs_torch.nets.uv_net import InvUVNet
+from tests.torch_threads import one_thread  # noqa: F401
 
 INV_CFG = {
     "emb_dim": 16,

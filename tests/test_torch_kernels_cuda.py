@@ -62,6 +62,16 @@ from texgs_torch.nets.hash_encode import (encode_backward_plain, encode_plain,
                                           level_resolution)
 
 
+# the suite runs in several xdist workers at once: torch's default of
+# a thread a core in each slows every worker many times over
+@pytest.fixture(autouse=True, scope="module")
+def two_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda_device():
     """The GPU for tests marked ``cuda``; they skip on a machine without

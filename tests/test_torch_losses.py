@@ -14,6 +14,7 @@ from texgs.data.synthetic import orbit_cameras
 from texgs.train.uv_map_gaussian3d import depth2world as jax_depth2world
 from texgs_torch import losses as tl
 from texgs_torch.train.uv_map_gaussian3d import depth2world
+from tests.torch_threads import one_thread  # noqa: F401
 
 H, W = 24, 32
 

@@ -39,6 +39,7 @@ from texgs_torch.kernels import tile_raster as ttr
 from texgs_torch.kernels import uvtex_raster as tuv
 from texgs_torch.nets.uv_net import UVNet
 from texgs_torch.utils import sh as tsh
+from tests.torch_threads import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -14,6 +14,7 @@ from texgs_torch.config import in_range
 from texgs_torch.core.camera import look_at_camera, with_ground_truth
 from texgs_torch.train import optim
 from texgs_torch.utils import schedules
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 def _tree(seed=0):

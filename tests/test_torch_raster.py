@@ -25,6 +25,7 @@ from texgs_torch.kernels import binning, project, tile_raster
 from texgs_torch.kernels.raster import (NO_GRAD_COLS, raster_pairs,
                                         raster_pairs_backward, raster_scan,
                                         raster_scan_vjp)
+from tests.torch_threads import one_thread  # noqa: F401
 
 CHUNK = 64
 BACKENDS = ["scan", "pallas"]

@@ -30,6 +30,7 @@ from texgs_torch.kernels import reference as tref
 from texgs_torch.kernels import tile_raster
 from texgs_torch.render.render import render
 from texgs_torch.utils.transforms import build_covariance_packed
+from tests.torch_threads import one_thread  # noqa: F401
 
 KEYS = ("xyz", "scaling", "rotation", "opacity", "features_dc",
         "features_rest")

@@ -29,6 +29,7 @@ from texgs.data.synthetic import blob_point_cloud
 from texgs.data.synthetic import orbit_cameras as jax_orbit_cameras
 from texgs.render.render import render as jax_render
 from texgs_torch.render.render import render
+from tests.torch_threads import one_thread  # noqa: F401
 
 N, SIZE = 320, 40
 BG = np.array([0.2, 0.1, 0.3], np.float32)

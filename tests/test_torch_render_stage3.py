@@ -34,6 +34,7 @@ from texgs_torch.io import checkpoint as tckpt
 from texgs_torch.train.texture_gaussian3d import (TextureGaussian3D,
                                                   cfg_from_state,
                                                   from_jax_state)
+from tests.torch_threads import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 N_ALIVE, CAPACITY, SIZE = 200, 256, 32

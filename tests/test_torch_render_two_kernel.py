@@ -33,6 +33,7 @@ from texgs_torch.kernels.project import project_gaussians
 from texgs_torch.kernels.uvtex_fused import fused_pairs
 from texgs_torch.train.optim import flatten_tree
 from texgs_torch.train.texture_gaussian3d import from_jax_state
+from tests.torch_threads import one_thread  # noqa: F401
 
 BG = np.array([0.3, 0.2, 0.1], np.float32)
 KEYS = ("xyz", "scaling", "rotation", "uvs", "jac", "texture", "shs")

@@ -24,6 +24,7 @@ from texgs.kernels.pallas_textile import tex_term_textile
 from texgs_torch.kernels import cubemap as tcube
 from texgs_torch.kernels import uvtex_raster as tuv
 from texgs_torch.kernels.tex_term import mlist_tex_term, tex_term
+from tests.torch_threads import one_thread  # noqa: F401
 
 MODES = ["bilinear", "nearest", "bilinear_clamp"]
 

@@ -21,6 +21,7 @@ import torch
 
 from texgs.kernels import uvtex_raster as juv
 from texgs_torch.kernels.tex_term import mlist_tex_term_vjp
+from tests.torch_threads import one_thread  # noqa: F401
 
 MODES = ["bilinear", "nearest", "bilinear_clamp"]
 H, W = 40, 56            # 3 x 4 tiles, the last row and column partial

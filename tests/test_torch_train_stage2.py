@@ -41,6 +41,7 @@ from texgs_torch.config import Cfg
 from texgs_torch.kernels import chamfer
 from texgs_torch.train.optim import flatten_tree
 from texgs_torch.train.uv_map_gaussian3d import UVMapGaussian3D, from_jax_state
+from tests.torch_threads import one_thread  # noqa: F401
 
 N, SIZE = 400, 32
 ITERS = (1, 2, 3)

@@ -32,6 +32,7 @@ from texgs_torch.kernels import tile_raster as ttr
 from texgs_torch.kernels import uvtex_raster as tuv
 from texgs_torch.kernels.project import ProjectedGaussians
 from texgs_torch.kernels.uvtex_fused import fused_pairs, mlist_scan
+from tests.torch_threads import one_thread  # noqa: F401
 
 CHUNK = 64
 
@@ -242,6 +243,49 @@ def test_plain_matches_sequential_loop(fused_runs):
         np.testing.assert_allclose(ours[2][tile, pix].numpy(), mlist,
                                    rtol=1e-5, atol=1e-6)
         assert int(ours[3][tile, pix]) == evals
+
+
+def test_smoke_exact_uv_route_refuses_a_turned_uv(fused_runs):
+    """chip_smoke.py's exact-uv route of check_kernel_a takes the plain
+    version's own M-lists, and refuses them with 40 slots' uv turned by
+    0.02 rad (the control phase 24 runs on the card)."""
+    import chip_smoke
+
+    m, (_, _, ours, inputs) = fused_runs
+    exact_uv = chip_smoke.exact_uv_check(torch, inputs)
+    chip_smoke.check_kernel_a(torch, ours, ours, exact_uv)
+    chip_smoke.exact_uv_control(torch, ours, ours, exact_uv)
+
+
+def test_smoke_intersect_error_bound_holds(fused_runs):
+    """chip_smoke.intersect_error_bound bounds the float32 intersect_uv's
+    distance from the float64 one, for every pixel of each tile against
+    every Gaussian of that tile, taking the float32 rays as exact."""
+    import chip_smoke
+    from texgs_torch.kernels.uvtex_fused import _tile_rays
+
+    m, (_, _, _, inputs) = fused_runs
+    _, uv_rows, pairs, rays, gx, _ = inputs
+    n_tiles = pairs.tile_counts.numel()
+    _, _, d = _tile_rays(rays, n_tiles, gx, "cpu")
+    checked = 0
+    for t in range(n_tiles):
+        g = pairs.pair_gauss[int(pairs.tile_start[t]):
+                             int(pairs.tile_end[t])].long()
+        if g.numel() == 0:
+            continue
+        rows = uv_rows[g][None].expand(d.shape[1], -1, -1).reshape(
+            -1, uv_rows.shape[1])
+        dt = d[t][:, None].expand(-1, g.numel(), -1).reshape(-1, 3)
+        f32 = tuv.intersect_uv(dt, rows).double()
+        f64 = tuv.intersect_uv(dt.double(), rows.double())
+        bound = chip_smoke.intersect_error_bound(
+            torch, dt.double(), rows.double(), torch.zeros_like(f64))
+        err = (f32 - f64).abs().max(-1).values
+        assert bool(torch.isfinite(bound).all())
+        assert bool((err <= bound).all()), float((err - bound).max())
+        checked += err.numel()
+    assert checked > 0
 
 
 def test_wrapper_takes_plain_version_on_cpu():

@@ -38,6 +38,7 @@ from texgs_torch.kernels import tile_raster as ttr
 from texgs_torch.kernels import uvtex_raster as tuv
 from texgs_torch.kernels.tex_term import mlist_tex_term_vjp, tex_term
 from texgs_torch.kernels.uvtex_fused import fused_pairs, mlist_scan_vjp
+from tests.torch_threads import one_thread  # noqa: F401
 
 BG = np.array([0.3, 0.2, 0.1], np.float32)
 NAMES = ("xyz", "log_scaling", "rotation", "opacity", "uvs", "texture", "shs")

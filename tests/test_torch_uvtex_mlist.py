@@ -33,6 +33,7 @@ from texgs_torch.kernels import uvtex_raster as tuv
 from texgs_torch.kernels.uvtex_mlist import (mlist_only_scan,
                                              mlist_only_scan_vjp, mlist_pairs,
                                              mlist_pairs_backward)
+from tests.torch_threads import one_thread  # noqa: F401
 
 PROJ_KEYS = ("means2d", "conics", "opacities")
 UV_KEYS = ("sv", "siginv", "base_uv")

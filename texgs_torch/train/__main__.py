@@ -47,7 +47,7 @@ def main(argv=None):
 
     from texgs_torch.config import dump_config, load_config
     from texgs_torch.train.driver import tb_writer_for, train
-    from texgs_torch.utils.logger import get_logger
+    from texgs_torch.utils.logger import get_logger, logging_to
 
     random.seed(args.seed)
     np.random.seed(args.seed)
@@ -65,17 +65,18 @@ def main(argv=None):
         os.makedirs(os.path.join(cfg.work_dir, "checkpoints"), exist_ok=True)
         dump_config(cfg, os.path.join(cfg.work_dir, "config.yaml"))
 
-    log = get_logger(log_file=None if cfg.debug else
-                     os.path.join(cfg.work_dir, "TextureGS.log"))
-    if not cfg.debug:
-        log.info(f"Work folder: {cfg.work_dir}")
-    # anomaly mode for this run only, as callers in the same process (tests,
-    # the smoke run) go on after main returns
-    nan_check = (torch.autograd.detect_anomaly() if args.debug_nans
-                 else contextlib.nullcontext())
-    with nan_check:
-        return train(cfg, log, tb_writer_for(cfg.work_dir, cfg.debug),
-                     device=args.device)
+    # this run's TextureGS.log, also where main runs again in one process
+    with logging_to(get_logger(), None if cfg.debug else
+                    os.path.join(cfg.work_dir, "TextureGS.log")) as log:
+        if not cfg.debug:
+            log.info(f"Work folder: {cfg.work_dir}")
+        # anomaly mode for this run only, as callers in the same process
+        # (tests, the smoke run) go on after main returns
+        nan_check = (torch.autograd.detect_anomaly() if args.debug_nans
+                     else contextlib.nullcontext())
+        with nan_check:
+            return train(cfg, log, tb_writer_for(cfg.work_dir, cfg.debug),
+                         device=args.device)
 
 
 if __name__ == "__main__":
