@@ -1,0 +1,3 @@
+"""The share of the traced viewer window that no device work covers."""
+
+from benchmark.metrics_common import idle_pct as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""Device kernels launched in the traced window, per training step."""
+
+from benchmark.metrics_common import launches as read  # noqa: F401

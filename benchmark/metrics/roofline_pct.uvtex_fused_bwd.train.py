@@ -1,0 +1,8 @@
+"""``uvtex_fused_bwd``'s bound (counts/uvtex_fused_bwd.py) over the device time launched
+inside its calls, summed over the traced training steps, in percent."""
+
+from benchmark.metrics_common import roofline
+
+
+def read(run):
+    return roofline(run, "uvtex_fused_bwd")
