@@ -30,6 +30,7 @@ from texgs_torch.kernels.tile_raster import (COL_ANCHOR, N_FIXED_F, NEG_INF,
                                              PIX, ROW_LOGOP, TABLE_FIXED,
                                              blend_features, chunk_weights,
                                              shift_to_tile, tile_power)
+from texgs_torch.utils.spans import spanned
 
 # blend channels the kernels are instantiated for: rgb, depth and normal
 # (stages 1 and 2), and those plus the 3 no-SH channels of the two-kernel
@@ -134,6 +135,7 @@ def _check_args(name: str, table, pairs: PairList) -> int:
     return n_f
 
 
+@spanned("kernel.raster")
 def raster_pairs_forward(table: torch.Tensor, pairs: PairList, gx: int):
     """Kernel 1 without autograd: blend channels, T_final and evaluated-pair
     counts of every tile (shapes: ``raster_scan``).  CPU tensors take the
@@ -164,6 +166,7 @@ def raster_pairs_forward(table: torch.Tensor, pairs: PairList, gx: int):
     return blend, t_final, n_eval
 
 
+@spanned("kernel.raster_bwd")
 def raster_pairs_backward(table: torch.Tensor, pairs: PairList, gx: int,
                           blend: torch.Tensor, t_final: torch.Tensor,
                           g_blend: torch.Tensor, g_t_final: torch.Tensor):

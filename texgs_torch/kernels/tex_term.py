@@ -32,6 +32,7 @@ from texgs_torch.kernels.binning import grid_shape
 from texgs_torch.kernels.cubemap import sample_cubemap
 from texgs_torch.kernels.tile_raster import tiles_to_image
 from texgs_torch.utils.sh import C0
+from texgs_torch.utils.spans import spanned
 
 FILTER_MODES = {"bilinear": 0, "bilinear_clamp": 1, "nearest": 2}
 TILE_BLOCK = 128  # tiles the plain version samples at a time
@@ -94,6 +95,7 @@ def _check_args(name: str, mlist, texture, height: int, width: int,
     return gx
 
 
+@spanned("kernel.tex_term")
 def tex_term_forward(mlist: torch.Tensor, texture: torch.Tensor, height: int,
                      width: int, filter_mode: str = "bilinear") -> torch.Tensor:
     """Kernel B without autograd: (T, PIX, m, 4) M-lists and a (6, R, R, 3)
@@ -118,6 +120,7 @@ def tex_term_forward(mlist: torch.Tensor, texture: torch.Tensor, height: int,
     return out
 
 
+@spanned("kernel.tex_term_bwd")
 def tex_term_backward(mlist: torch.Tensor, texture: torch.Tensor,
                       g_img: torch.Tensor, height: int, width: int,
                       filter_mode: str = "bilinear"):

@@ -34,6 +34,7 @@ from texgs_torch.kernels.tile_raster import (COL_ANCHOR, N_FIXED_F, NEG_INF,
                                              shift_to_tile, tile_basis,
                                              tile_power)
 from texgs_torch.kernels.uvtex_raster import UV_COLS, intersect_uv
+from texgs_torch.utils.spans import spanned
 
 # blend channels the kernel is instantiated for: rgb, depth and normal, and
 # those plus the 3 no-SH channels of rasterize_uvtex
@@ -205,6 +206,7 @@ def check_float4(name: str, *tensors):
                          "float4)")
 
 
+@spanned("kernel.uvtex_fused")
 def fused_pairs_forward(table: torch.Tensor, uv_rows: torch.Tensor,
                         pairs: PairList, rays: np.ndarray, gx: int, m: int):
     """Kernel A without autograd: blend channels, T_final, M-lists and
@@ -236,6 +238,7 @@ def fused_pairs_forward(table: torch.Tensor, uv_rows: torch.Tensor,
     return blend, t_final, mlist, n_eval
 
 
+@spanned("kernel.uvtex_fused_bwd")
 def fused_pairs_backward(table: torch.Tensor, uv_rows: torch.Tensor,
                          pairs: PairList, rays: np.ndarray, gx: int, m: int,
                          blend: torch.Tensor, t_final: torch.Tensor,

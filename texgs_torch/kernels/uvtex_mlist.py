@@ -35,6 +35,7 @@ from texgs_torch.kernels.tile_raster import (COL_ANCHOR, N_FIXED_F, PIX,
 from texgs_torch.kernels.uvtex_fused import (check_float4, check_pair_args,
                                              mlist_scan, mlist_scan_vjp,
                                              rays9)
+from texgs_torch.utils.spans import spanned
 
 
 def _without_channels(table: torch.Tensor) -> torch.Tensor:
@@ -74,6 +75,7 @@ _BWD_ARGS = [_P, _I, _P, _P, _P, _P, _P, _RAYS, _I, _I, _I, _P, _P, _P, _P,
              _P]
 
 
+@spanned("kernel.uvtex_mlist")
 def mlist_pairs_forward(table: torch.Tensor, uv_rows: torch.Tensor,
                         pairs: PairList, rays: np.ndarray, gx: int, m: int):
     """Kernel 2 without autograd: the M-lists (T, PIX, m, 4) of every tile.
@@ -99,6 +101,7 @@ def mlist_pairs_forward(table: torch.Tensor, uv_rows: torch.Tensor,
     return mlist
 
 
+@spanned("kernel.uvtex_mlist_bwd")
 def mlist_pairs_backward(table: torch.Tensor, uv_rows: torch.Tensor,
                          pairs: PairList, rays: np.ndarray, gx: int, m: int,
                          mlist: torch.Tensor, g_mlist: torch.Tensor):

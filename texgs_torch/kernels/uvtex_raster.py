@@ -45,6 +45,7 @@ from texgs_torch.kernels.reference import (RasterOutput, compose,
 from texgs_torch.kernels.tile_raster import (assemble_image, build_gauss_table,
                                              tiles_to_image)
 from texgs_torch.utils.sh import C0, eval_sh
+from texgs_torch.utils.spans import span
 from texgs_torch.utils.transforms import rotation_channels
 
 T_STAR_MAX = 1e4
@@ -296,24 +297,28 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
     height, width = camera.height, camera.width
     if row_offset is not None:
         proj, height = band_rows(proj, row_offset, band_height)
-    pairs = build_pairs(proj.means2d, proj.depths, proj.radii, height, width)
+    with span("render.binning"):
+        pairs = build_pairs(proj.means2d, proj.depths, proj.radii, height,
+                            width)
+        # kernel A, or kernels 1, 2, 1' and 2', take the tiles heaviest first
+        pairs = with_tile_order(pairs)
     table = build_gauss_table(proj, extra_attrs)
     uv_rows, rays = build_uv_rows(tables), ray_constants(camera, row_offset)
     gx = grid_shape(height, width)[1]
-    # kernel A, or kernels 1, 2, 1' and 2', take the tiles heaviest first
-    pairs = with_tile_order(pairs)
-    if path == "fused":
-        tiles_out, t_final, mlist, _ = fused_pairs(table, uv_rows, pairs,
-                                                   rays, gx, m)
-    else:
-        tiles_out, t_final, _ = raster_pairs(table, pairs, gx)
-        mlist = mlist_pairs(table, uv_rows, pairs, rays, gx, m)
-    base = assemble_image(tiles_out, t_final, height, width, bg, n_extra,
-                          normalize_depth)
-    tex_img = tex_term(mlist, texture, height, width, filter_mode)
-    if m_tail:
-        tex_img = tex_img + tail_tex_term(mlist, t_final, texture, height,
-                                          width, filter_mode)
+    with span("render.blend"):
+        if path == "fused":
+            tiles_out, t_final, mlist, _ = fused_pairs(table, uv_rows, pairs,
+                                                       rays, gx, m)
+        else:
+            tiles_out, t_final, _ = raster_pairs(table, pairs, gx)
+            mlist = mlist_pairs(table, uv_rows, pairs, rays, gx, m)
+        base = assemble_image(tiles_out, t_final, height, width, bg, n_extra,
+                              normalize_depth)
+    with span("render.tex_term"):
+        tex_img = tex_term(mlist, texture, height, width, filter_mode)
+        if m_tail:
+            tex_img = tex_img + tail_tex_term(mlist, t_final, texture, height,
+                                              width, filter_mode)
 
     out = RasterOutput(image=base.image + tex_img, depth=base.depth,
                        norm=base.norm, alpha=base.alpha, extra=base.extra,

@@ -30,6 +30,7 @@ import torch
 
 from texgs_torch import _build
 from texgs_torch.nets.hash_gather import _gather_backward, gather_plain
+from texgs_torch.utils.spans import spanned
 
 PRIMES = (1, 2654435761, 805459861)
 BASE_RESOLUTION = 16
@@ -180,6 +181,7 @@ _FWD_ARGS = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
 _BWD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
 
 
+@spanned("kernel.hash_encode")
 def hash_encode_forward(table: torch.Tensor, x: torch.Tensor,
                         corners: bool = False):
     """Kernel K5' without autograd: (N, L * F) features of the points x
@@ -213,6 +215,7 @@ def hash_encode_forward(table: torch.Tensor, x: torch.Tensor,
     return (out, idx, w) if corners else out
 
 
+@spanned("kernel.hash_encode_bwd")
 def hash_encode_backward(table: torch.Tensor, x: torch.Tensor,
                          g: torch.Tensor, need_x: bool = True):
     """Kernel K5'': the encode's VJP for the cotangent g (N, L * F) ->

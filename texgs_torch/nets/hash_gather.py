@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from texgs_torch import _build
+from texgs_torch.utils.spans import spanned
 
 
 def gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -50,6 +51,7 @@ def _gather_backward(table_shape, idx: torch.Tensor,
     return d_table
 
 
+@spanned("kernel.hash_gather")
 def hash_gather_forward(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Kernel K5 without autograd.  CPU tensors take the plain version;
     CUDA tensors launch csrc/hash_gather.cu."""

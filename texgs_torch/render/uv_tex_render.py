@@ -15,6 +15,7 @@ import torch
 from texgs_torch.core.camera import Camera
 from texgs_torch.kernels import project as proj_k
 from texgs_torch.kernels.uvtex_raster import rasterize_uvtex
+from texgs_torch.utils.spans import span
 
 
 def uv_tex_render(viewpoint_camera: Camera, *,
@@ -54,12 +55,13 @@ def uv_tex_render(viewpoint_camera: Camera, *,
     def on_device(a):
         return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
-    proj = proj_k.project_gaussians(
-        xyz, scaling, rotation, opacity,
-        torch.zeros_like(xyz),  # colors come from the texture per intersection
-        on_device(cam.world_view), on_device(cam.full_proj),
-        on_device(cam.camera_center), cam.width, cam.height,
-        cam.tanfovx, cam.tanfovy)
+    with span("render.project"):
+        proj = proj_k.project_gaussians(
+            xyz, scaling, rotation, opacity,
+            torch.zeros_like(xyz),  # colors come from the texture
+            on_device(cam.world_view), on_device(cam.full_proj),
+            on_device(cam.camera_center), cam.width, cam.height,
+            cam.tanfovx, cam.tanfovy)
 
     out = rasterize_uvtex(
         proj, scaling, rotation, xyz, uvs, grad_uvs, texture, shs,

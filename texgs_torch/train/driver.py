@@ -7,8 +7,11 @@ and checkpoints in texgs's schema, and TensorBoard scalars and images
 through tensorboardX where it is installed.  With ``cfg.profile_dir`` a
 ``torch.profiler`` trace of iterations PROFILE_FIRST..PROFILE_LAST (CPU
 activity, and the card's where there is one) goes into that directory as
-a Chrome trace.  Every 250 iterations the loop collects cyclic garbage
-and reads the host's resident memory, logged every 1,000.  The port's
+a Chrome trace; it holds the program's ``texgs::`` spans
+(``texgs_torch.utils.spans``), and ``python -m benchmark.spans TRACE``
+reduces it to launches, idle time and host syncs by span and by phase.
+Every 250 iterations the loop collects cyclic garbage and reads the
+host's resident memory, logged every 1,000.  The port's
 models validate every step when it returns, so there is no ``flush``.
 """
 

@@ -49,6 +49,7 @@ from texgs_torch.train.uv_map_gaussian3d import (inverse_world_points,
                                                   net_leaves)
 from texgs_torch.utils.schedules import expon_lr, warmup_multistep
 from texgs_torch.utils.sh import C0
+from texgs_torch.utils.spans import span, spanned
 
 GAUSS_KEYS = ("xyz", "opacity", "scaling", "rotation", "shs")
 LAMBDAS = ("dssim", "alpha", "depth", "norm", "norm_reg", "norm_smooth",
@@ -257,10 +258,12 @@ class TextureGaussian3D:
                     rotation=rot, opacity=torch.sigmoid(gp["opacity"]),
                     shs=gp.get("shs"))
 
+    @spanned("render.uv_net")
     def _uvs_and_jac(self, xyz):
         uvs, jac = self.uv_net.forward_with_jac(xyz, self.geo_emb)
         return uvs, jac.reshape(-1, 9)
 
+    @spanned("render")
     def _render(self, camera: Camera, with_no_sh: bool = True,
                 row_offset: Optional[int] = None,
                 band_height: Optional[int] = None) -> dict:
@@ -328,6 +331,7 @@ class TextureGaussian3D:
                "tex": oc.tex_lr}
         return flags, lambdas, lrs, (gauss_on, uv_on, tex_on)
 
+    @spanned("step")
     def compute_loss(self, cur_iter: int, total_iter: int, viewpoint: Camera,
                      render_unused, loss_cfg: Cfg):
         """One training step on ``viewpoint`` (which carries its ground
@@ -353,17 +357,21 @@ class TextureGaussian3D:
         gt_image, gt_alpha = ground_truth(viewpoint, self.device)
         with torch.enable_grad():
             out = self._render(viewpoint, with_no_sh=flags[7])
-            loss, stats = stage3_loss_terms(
-                out["render"], out["depth"], out["norm"], out["alpha"],
-                out["render_no_sh"] if flags[7] else None, viewpoint,
-                gt_image, gt_alpha, torch.sigmoid(self.gauss["opacity"]),
-                self.uv_net,
-                self.inv_uv_net, self.geo_emb, self.rng,
-                int(self.cfg.get_or("max_inverse_points", 0)), flags, lambdas)
-            loss.backward()
-        for adam, leaves, lrs, on in groups:
-            if on:
-                adam.step(leaves, lrs)
+            with span("loss"):
+                loss, stats = stage3_loss_terms(
+                    out["render"], out["depth"], out["norm"], out["alpha"],
+                    out["render_no_sh"] if flags[7] else None, viewpoint,
+                    gt_image, gt_alpha, torch.sigmoid(self.gauss["opacity"]),
+                    self.uv_net,
+                    self.inv_uv_net, self.geo_emb, self.rng,
+                    int(self.cfg.get_or("max_inverse_points", 0)), flags,
+                    lambdas)
+            with span("backward"):
+                loss.backward()
+        with span("adam"):
+            for adam, leaves, lrs, on in groups:
+                if on:
+                    adam.step(leaves, lrs)
         stats = {k: v.detach() for k, v in stats.items()}
         stats["n_pairs"] = out["n_pairs"]
         return stats["total_loss"], stats, {}
@@ -401,11 +409,14 @@ class TextureGaussian3D:
     @torch.no_grad()
     def visual_step(self, cur_iter: int, total_iter: int, viewpoint: Camera,
                     render_unused=None) -> dict:
-        out = self.render(viewpoint)
-        return dict(image=out["render"], image_no_sh=out["render_no_sh"],
-                    depth=out["depth"], norm=out["norm"], alpha=out["alpha"],
-                    envmap=self.sphere_map((512, 1024)).permute(2, 0, 1),
-                    cubemap=self.cube_map().permute(2, 0, 1))
+        with span("view"):
+            out = self.render(viewpoint)
+            with span("maps"):
+                envmap = self.sphere_map((512, 1024)).permute(2, 0, 1)
+                cubemap = self.cube_map().permute(2, 0, 1)
+            return dict(image=out["render"], image_no_sh=out["render_no_sh"],
+                        depth=out["depth"], norm=out["norm"],
+                        alpha=out["alpha"], envmap=envmap, cubemap=cubemap)
 
     @property
     def n_points(self) -> int:
