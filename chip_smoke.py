@@ -23,10 +23,13 @@ one card.  Phases, in order; any failure exits non-zero:
                 on M-lists of m = 1, 4 and 33 slots (warps that straddle
                 pixels; pixels of 0, 1, 31 and m live slots), and with NaN
                 in every dead slot's uv, there and on view 0's M-lists (the
-                same output bit for bit);
+                same output bit for bit); kernel M's two maps of the
+                model's texture (visual_step's 512x1024 panorama and the
+                cross image) against the plain chain, the cross bit for bit;
   5. main    -- 3 orbit views through TextureGaussian3D.visual_step, a
                 change_texture(chessboard, mode=0) retexture, the 3 views
-                again; every kernel's launch count is read over this phase;
+                again; every kernel's launch count is read over this phase
+                (A and B once a view, M twice: one launch a map);
   6. timings -- per-view and per-kernel times (CUDA events, median of 5),
                 and one render under torch.profiler: the device's busy
                 share and its time by kernel and by operator;
@@ -196,7 +199,7 @@ one card.  Phases, in order; any failure exits non-zero:
                 at least the first card reading less 1.5 dB.
 
 The line before the last is a JSON object with one entry per kernel
-(eleven); the last line is {"ok": true, "device": {...}}.
+(twelve); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --golden-seeds 0,1,2
 
@@ -265,6 +268,11 @@ QUEUE_CYCLES = 4_000_000
 OPS_A_EVAL = 16
 OPS_A_SLOT = 60
 OPS_B_SLOT = 300   # seamless bilinear, the main path's filter
+# of kernel M per panorama pixel: its direction, footprint, four seamless
+# taps (up to 12 texels through sh02rgb) and the blend
+OPS_M_PIXEL = 400
+# visual_step's envmap: the (H, W) of its panorama
+PANORAMA = (512, 1024)
 # f32 operations of kernel A' per evaluated (pixel, pair) besides 3 F for
 # the channels (replay, suffix form, exponent gradient, block sums), per
 # in-list slot (intersection and its gradient); of kernel B' per live slot
@@ -3556,11 +3564,13 @@ def main(argv=None) -> int:
         return 2
     from texgs_torch import _build  # importing the package turns TF32 off
     from texgs_torch.data.synthetic import orbit_cameras
-    from texgs_torch.kernels.cubemap import (chessboard_cubemap, faces_to_cross,
+    from texgs_torch.kernels.cubemap import (chessboard_cubemap, cubemap_maps,
+                                             cubemap_to_latlong, faces_to_cross,
                                              sample_cubemap)
     from texgs_torch.kernels.tex_term import mlist_tex_term, tex_term
     from texgs_torch.kernels.tile_raster import N_FIXED_F, TABLE_FIXED
     from texgs_torch.kernels.uvtex_fused import fused_pairs, mlist_scan
+    from texgs_torch.utils.sh import sh02rgb
 
     device = torch.device("cuda")
     card = subprocess.run(
@@ -3689,6 +3699,20 @@ def main(argv=None) -> int:
                 check_dead_nan(torch, f"B m = {sm}, {mode}", ml, live, got,
                                lambda x, mode=mode: tex_term(
                                    x, small_tex, 40, 56, mode))
+        # kernel M: visual_step's maps of the model's texture
+        rgb = sh02rgb(texture)
+        want_maps = (cubemap_to_latlong(rgb, PANORAMA), faces_to_cross(rgb))
+        del rgb
+        got_maps = (cubemap_maps(texture, PANORAMA), cubemap_maps(texture))
+        torch.cuda.synchronize()
+        same = torch.equal(got_maps[1], want_maps[1])
+        log(f"  M cross image {tuple(got_maps[1].shape)}: equal to the plain "
+            f"chain's bit for bit: {same}")
+        if not same:
+            fail("kernel M's cross image differs from its plain version")
+        err_m = check_close(torch, f"M panorama {PANORAMA}", got_maps[0],
+                            want_maps[0], atol=1e-6)
+        del want_maps
         # the end-to-end image of view 0 with the plain versions swapped in
         plain_image = plain_render(model, cams[0])["render"]
 
@@ -3696,6 +3720,7 @@ def main(argv=None) -> int:
     chess = faces_to_cross(chessboard_cubemap(TEX_RES // 16, 16, device=device))
     fused_pairs.launches = 0
     tex_term.launches = 0
+    cubemap_maps.launches = 0
     t0 = time.perf_counter()
     views, retextured = [], []
     for c in cams:
@@ -3706,13 +3731,15 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = {"uvtex_fused": fused_pairs.launches,
-                "tex_term": tex_term.launches}
+                "tex_term": tex_term.launches,
+                "cubemap_maps": cubemap_maps.launches}
     log(f"[main] {2 * N_VIEWS} views (3 + 3 retextured) in {main_s:.3f} s; "
         f"launches {launches}")
     for name, n in launches.items():
-        if n != 2 * N_VIEWS:
+        a_view = 2 if name == "cubemap_maps" else 1
+        if n != a_view * 2 * N_VIEWS:
             fail(f"kernel {name} launched {n} times on the main path, "
-                 f"expected one a view ({2 * N_VIEWS})")
+                 f"expected {a_view} a view ({a_view * 2 * N_VIEWS})")
 
     keys = ("image", "image_no_sh", "depth", "norm", "alpha", "envmap",
             "cubemap")
@@ -3749,6 +3776,15 @@ def main(argv=None) -> int:
         b_ms, b_host = kernel_ms(torch, lambda: tex_term(*b_args))
         b_plain_ms = median_ms(torch, lambda: mlist_tex_term(*b_args))
 
+        def maps():
+            return cubemap_maps(texture, PANORAMA), cubemap_maps(texture)
+
+        def plain_maps():
+            rgb = sh02rgb(texture)
+            return cubemap_to_latlong(rgb, PANORAMA), faces_to_cross(rgb)
+        m_ms, m_host = kernel_ms(torch, maps)
+        m_plain_ms, m_plain_host = kernel_ms(torch, plain_maps)
+
         # bounds from this run's inputs
         a_bytes = nbytes(table, uv_rows, pairs.pair_gauss, pairs.tile_start,
                          pairs.tile_end, *got_a)
@@ -3766,6 +3802,9 @@ def main(argv=None) -> int:
         b_bytes = nbytes(mlist) + texels * 12 + nbytes(got_b)
         b_ops = live_slots * OPS_B_SLOT
         b_bound, b_by = bound(b_bytes, b_ops)
+        # M reads the texture once and writes both maps once
+        m_bytes = nbytes(texture, *got_maps)
+        m_bound, m_by = bound(m_bytes, PANORAMA[0] * PANORAMA[1] * OPS_M_PIXEL)
     log(f"[time] kernel A uvtex_fused: {a_ms:.4f} ms (host-launched "
         f"{a_host:.4f}), plain {a_plain_ms:.3f} ms, "
         f"bound {a_bound:.4f} ms ({a_bytes / 1e6:.1f} MB, "
@@ -3774,6 +3813,14 @@ def main(argv=None) -> int:
         f"{b_host:.4f}), plain {b_plain_ms:.3f} ms, "
         f"bound {b_bound:.4f} ms ({b_bytes / 1e6:.1f} MB incl. {texels} "
         f"texels touched, {live_slots} live slots)")
+    log(f"[time] kernel M cubemap_maps (both maps, 2 launches): {m_ms:.4f} "
+        f"ms (host-launched {m_host:.4f}), plain chain {m_plain_ms:.3f} ms "
+        f"queued (host-launched {m_plain_host:.3f}), bound {m_bound:.4f} ms "
+        f"({m_bytes / 1e6:.1f} MB)")
+    with torch.no_grad():
+        profile_device(torch, "kernel M, both maps", maps, m_host)
+        profile_device(torch, "the maps' plain chain", plain_maps,
+                       m_plain_host)
 
     kernels = [
         entry("uvtex_fused", "texgs_torch/csrc/uvtex_fused.cu",
@@ -3782,6 +3829,11 @@ def main(argv=None) -> int:
         entry("tex_term", "texgs_torch/csrc/tex_term.cu",
               "texgs/kernels/pallas_textile.py:774", launches["tex_term"],
               b_ms, b_plain_ms, b_bound, b_by, err_b),
+        entry("cubemap_maps", "texgs_torch/csrc/cubemap_maps.cu",
+              "none (XLA ops: texgs/kernels/cubemap.py:209, "
+              "texgs/train/texture_gaussian3d.py:610)",
+              launches["cubemap_maps"], m_ms, m_plain_host, m_bound, m_by,
+              err_m),
     ]
     with torch.no_grad():
         profile_device(torch, "one render of view 0",
@@ -3789,7 +3841,7 @@ def main(argv=None) -> int:
 
     entries, step_ms, step3_launches = train_phases(torch, model, cams, views)
     kernels += entries
-    del model, a_args, b_args, got_a, want_a, got_b, want_b
+    del model, a_args, b_args, got_a, want_a, got_b, want_b, got_maps
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as work_dir:

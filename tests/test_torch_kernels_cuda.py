@@ -31,11 +31,19 @@ rtol 1e-5.  Its backward K5'' adds the table gradient with atomics, at
 plain version, and its terms (res_l g . row, ~10^3 at a table in [-1, 1])
 cancel, so it is held at tests/test_hashgrid.py's query tolerance, 1e-4 +
 1e-4 |x|.
+The viewer's maps kernel (csrc/cubemap_maps.cu) writes the cross image
+bit for bit as its plain version and picks the panorama's texels with
+kernel B's explicitly rounded helpers, blending in the plain version's
+order and rounding as it does on CUDA tensors: the panorama is held at
+atol 1e-6 on texels of contrast ~1, so a tap that read another texel
+with a weight above ~1e-6 would show.
 Kernels 1 and 1' (the stage-1/2 blend, and the two-kernel stage-3 blend at
 F = 10) are held as A and A' are, without the M-list and uv rows; kernels
 2 and 2' (the two-kernel stage-3 M-lists) as A and A' are, without the
 blend channels.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -45,6 +53,8 @@ from texgs_torch.core.state import init_from_pcd
 from texgs_torch.data.synthetic import (orbit_cameras,
                                         textured_sphere_point_cloud)
 from texgs_torch.kernels import binning, project, tile_raster, uvtex_raster
+from texgs_torch.kernels.cubemap import (cubemap_maps, cubemap_to_latlong,
+                                         direction_to_face_uv, faces_to_cross)
 from texgs_torch.kernels.tex_term import (mlist_tex_term, mlist_tex_term_vjp,
                                           tex_term, tex_term_backward)
 from texgs_torch.kernels.uvtex_fused import (fused_pairs, fused_pairs_backward,
@@ -60,6 +70,7 @@ from texgs_torch.nets.hash_encode import (encode_backward_plain, encode_plain,
                                           hash_encode_forward,
                                           indices_and_weights,
                                           level_resolution)
+from texgs_torch.utils.sh import sh02rgb
 
 
 # the suite runs in several xdist workers at once: torch's default of
@@ -1599,3 +1610,98 @@ def test_verifier_refuses_a_corrupted_tile_row_on_the_card(cuda_device,
                                                backend="auto")
     assert not ok
     assert results["fwd_image"] > verify_compiled.REL_TOL_FWD
+
+
+# ------------------------------------------------- the viewer's maps kernel
+def sh0_texture(res, seed=6):
+    """A (6, R, R, 3) SH0 texture whose C0 * sh0 + 0.5 spans about
+    [-0.35, 1.35], so sh02rgb's clamp bites on both sides."""
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.uniform(-3.0, 3.0, size=(6, res, res, 3)),
+                           dtype=torch.float32)
+
+
+def panorama_taps(res, height, width):
+    """For the (height, width) panorama of a res^2 cubemap (the pixel
+    directions of cubemap_to_latlong): how many pixels have a tap past one
+    face edge, and the set of cube corners (octants) that pixels with a tap
+    past two edges (a 3-texel corner mean) sit in."""
+    gv, gu = torch.meshgrid((torch.arange(height) + 0.5) / height,
+                            (torch.arange(width) + 0.5) / width,
+                            indexing="ij")
+    theta, phi = gv * math.pi, gu * 2 * math.pi - math.pi
+    d = torch.stack([torch.sin(theta) * torch.sin(phi), torch.cos(theta),
+                     -torch.sin(theta) * torch.cos(phi)], -1).reshape(-1, 3)
+    _, u, v = direction_to_face_uv(d)
+    x0 = torch.floor((u * 0.5 + 0.5) * res - 0.5)
+    y0 = torch.floor((v * 0.5 + 0.5) * res - 0.5)
+    out_u = (x0 < 0) | (x0 + 1 > res - 1)
+    out_v = (y0 < 0) | (y0 + 1 > res - 1)
+    corner = out_u & out_v
+    octants = {tuple(s) for s in (d[corner] > 0).int().tolist()}
+    return int((out_u ^ out_v).sum()), octants
+
+
+def test_panorama_reaches_every_cube_corner():
+    """The card test's (512, 1024) panorama of a 16^2 cubemap taps across
+    face edges and takes the 3-texel mean at all 8 cube corners."""
+    n_edge, octants = panorama_taps(16, 512, 1024)
+    assert n_edge > 1000
+    assert len(octants) == 8
+
+
+@pytest.mark.parametrize("res", [8, 16])
+@pytest.mark.parametrize("resolution", [(24, 48), None],
+                         ids=["latlong", "cross"])
+def test_cubemap_maps_wrapper_runs_plain_version_on_cpu(res, resolution):
+    tex = sh0_texture(res)
+    before = cubemap_maps.launches
+    got = cubemap_maps(tex, resolution)
+    assert cubemap_maps.launches == before
+    rgb = sh02rgb(tex)
+    want = (faces_to_cross(rgb) if resolution is None
+            else cubemap_to_latlong(rgb, resolution))
+    assert torch.equal(got, want)
+
+
+def _nan_filled_pool(device, *shapes):
+    """Leaves NaN-filled blocks of these shapes in the caching allocator,
+    so outputs allocated next reuse them: an element a kernel skips
+    stays NaN."""
+    held = [torch.full(s, float("nan"), device=device) for s in shapes]
+    del held
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [12, 16, 1024])
+@pytest.mark.parametrize("hw", [(24, 48), (512, 1024)], ids=["24x48",
+                                                           "512x1024"])
+def test_cubemap_maps_kernel_matches_plain(cuda_device, res, hw):
+    """Both maps against the plain chain on the card, one launch each; R =
+    12 is no power of two, so there the seamless taps' (xi + 0.5) / R
+    rounds otherwise in the kernel than in the plain chain, and must still
+    pick the same texels."""
+    tex = sh0_texture(res).to(cuda_device)
+    rgb = sh02rgb(tex)
+    want_pano = cubemap_to_latlong(rgb, hw)
+    want_cross = faces_to_cross(rgb)
+    _nan_filled_pool(cuda_device, (*hw, 3), (3 * res, 4 * res, 3))
+    before = cubemap_maps.launches
+    pano = cubemap_maps(tex, hw)
+    assert cubemap_maps.launches == before + 1
+    image = cubemap_maps(tex)
+    assert cubemap_maps.launches == before + 2
+    torch.cuda.synchronize()
+    assert pano.shape == (*hw, 3) and image.shape == (3 * res, 4 * res, 3)
+    assert torch.equal(image, want_cross)
+    off = (pano - want_pano).abs().max().item()
+    print(f"cubemap_maps R = {res}, {hw}: panorama max |kernel - plain| "
+          f"{off:.3g}, {int((pano != want_pano).sum())} values not equal")
+    assert off <= 1e-6
+
+
+@pytest.mark.cuda
+def test_cubemap_maps_rejects_a_strided_texture(cuda_device):
+    tex = sh0_texture(16).to(cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        cubemap_maps(tex, (24, 48))

@@ -11,6 +11,8 @@ rtol 1e-4 (tests/test_textile.py:53-54); the cubemap taps themselves must
 agree to float32 rounding.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,9 +23,11 @@ from tests.test_torch_kernels_cuda import live_count_mlist
 from texgs.kernels import cubemap as jcube
 from texgs.kernels import uvtex_raster as juv
 from texgs.kernels.pallas_textile import tex_term_textile
+from texgs.train.texture_gaussian3d import TextureGaussian3D as JaxModel
 from texgs_torch.kernels import cubemap as tcube
 from texgs_torch.kernels import uvtex_raster as tuv
 from texgs_torch.kernels.tex_term import mlist_tex_term, tex_term
+from texgs_torch.train.texture_gaussian3d import TextureGaussian3D
 from tests.torch_threads import one_thread  # noqa: F401
 
 MODES = ["bilinear", "nearest", "bilinear_clamp"]
@@ -127,6 +131,30 @@ def test_cubemap_to_latlong_matches_jax():
     want = jcube.cubemap_to_latlong(jnp.asarray(tex), (24, 48))
     got = tcube.cubemap_to_latlong(torch.as_tensor(tex), (24, 48))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("res", [8, 16])
+def test_texture_maps_match_jax_past_the_clamp(res):
+    """The port's sphere_map and cube_map (``cubemap_maps``, which runs the
+    plain functions on CPU tensors and launches nothing) against texgs's,
+    on an SH0 texture whose C0 * sh0 + 0.5 spans [-0.35, 1.35], so
+    sh02rgb's clamp bites."""
+    sh0 = np.random.default_rng(res).uniform(
+        -3.0, 3.0, size=(6, res, res, 3)).astype(np.float32)
+    jmodel = SimpleNamespace(tex_params={"texture": jnp.asarray(sh0)},
+                             tex_res=res)
+    model = SimpleNamespace(texture=torch.as_tensor(sh0))
+    before = tcube.cubemap_maps.launches
+    pano = TextureGaussian3D.sphere_map(model, (24, 48))
+    cross = TextureGaussian3D.cube_map(model)
+    assert tcube.cubemap_maps.launches == before
+    assert pano.shape == (24, 48, 3) and cross.shape == (3 * res, 4 * res, 3)
+    np.testing.assert_allclose(pano.numpy(),
+                               JaxModel.sphere_map(jmodel, (24, 48)),
+                               atol=1e-5)
+    np.testing.assert_allclose(cross.numpy(),
+                               np.asarray(JaxModel.cube_map(jmodel)),
+                               rtol=0, atol=1e-6)
 
 
 def test_chessboard_cubemap_matches_jax():

@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNEL_SOURCES = ("uvtex_fused", "uvtex_fused_bwd", "tex_term", "tex_term_bwd",
                   "hash_gather", "raster", "raster_bwd", "uvtex_mlist",
-                  "uvtex_mlist_bwd", "hash_encode", "hash_encode_bwd")
+                  "uvtex_mlist_bwd", "hash_encode", "hash_encode_bwd",
+                  "cubemap_maps")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -7,14 +7,25 @@ Face convention (OpenGL cube-map order +x,-x,+y,-y,+z,-z):
 Default 'bilinear' filtering is SEAMLESS: taps that cross a face edge are
 re-resolved through their 3D direction onto the adjacent face, and taps at
 the 8 cube corners average the 3 face-corner texels.  This module is the
-plain version of the tap math in csrc/tex_term.cu.
+plain version of the tap math in csrc/tex_term.cu and
+csrc/cubemap_maps.cu.
+
+``cubemap_maps`` makes one of the viewer's two maps of an SH0 texture
+(the latlong panorama or the cross image, after ``sh02rgb``): the plain
+functions below for CPU tensors, one launch of csrc/cubemap_maps.cu for
+CUDA tensors.  Each launch adds one to ``cubemap_maps.launches``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
+
+from texgs_torch import _build
+from texgs_torch.utils.sh import sh02rgb
+from texgs_torch.utils.spans import spanned
 
 
 def direction_to_face_uv(dirs: torch.Tensor):
@@ -169,3 +180,48 @@ def cross_to_faces(cross: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"cross image must be (3R, 4R, C), got {tuple(cross.shape)}")
     return torch.stack([cross[r * res:(r + 1) * res, c * res:(c + 1) * res]
                         for r, c in CROSS_BLOCKS])
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@spanned("kernel.cubemap_maps")
+def cubemap_maps(sh0: torch.Tensor, resolution=None) -> torch.Tensor:
+    """An rgb map of a (6, R, R, 3) SH0 cubemap, computed anew each call:
+    for a ``resolution`` (H, W) the (H, W, 3)
+    ``cubemap_to_latlong(sh02rgb(sh0), resolution)``, else the (3R, 4R, 3)
+    ``faces_to_cross(sh02rgb(sh0))``.  CPU tensors take those plain
+    functions; CUDA tensors one launch of csrc/cubemap_maps.cu, which
+    applies sh02rgb to each texel as it reads it."""
+    if sh0.device.type == "cpu":
+        rgb = sh02rgb(sh0)
+        return (faces_to_cross(rgb) if resolution is None
+                else cubemap_to_latlong(rgb, resolution))
+    if sh0.device.type != "cuda":
+        raise ValueError(f"cubemap_maps: unsupported device {sh0.device}")
+    res = sh0.shape[1] if sh0.dim() == 4 else 0
+    if (sh0.shape != (6, res, res, 3) or res < 1 or sh0.dtype != torch.float32
+            or not sh0.is_contiguous()):
+        raise ValueError("cubemap_maps: the texture must be a contiguous "
+                         f"float32 (6, R, R, 3) tensor, got {tuple(sh0.shape)}"
+                         f" {sh0.dtype}")
+    p, stream = _build.ptr, _build.stream_of(sh0)
+    if resolution is None:
+        out = sh0.new_empty((3 * res, 4 * res, 3))
+        err = _build.function("cubemap_maps", "cubemap_cross",
+                              [_P, _I, _P, _P])(p(sh0), res, p(out), stream)
+    else:
+        h, w = int(resolution[0]), int(resolution[1])
+        if h < 1 or w < 1:
+            raise ValueError(f"cubemap_maps: bad panorama size {resolution}")
+        out = sh0.new_empty((h, w, 3))
+        err = _build.function("cubemap_maps", "cubemap_latlong",
+                              [_P, _I, _I, _I, _P, _P])(
+            p(sh0), res, h, w, p(out), stream)
+    if err:
+        raise RuntimeError(f"cubemap_maps failed: CUDA error {err}")
+    cubemap_maps.launches += 1
+    return out
+
+
+cubemap_maps.launches = 0

@@ -38,8 +38,7 @@ import torch
 from texgs_torch import losses
 from texgs_torch.config import Cfg, in_range
 from texgs_torch.core.camera import Camera, ground_truth
-from texgs_torch.kernels.cubemap import (cross_to_faces, cubemap_to_latlong,
-                                         faces_to_cross)
+from texgs_torch.kernels.cubemap import cross_to_faces, cubemap_maps
 from texgs_torch.kernels.uvtex_raster import resolve_backends
 from texgs_torch.nets.uv_net import InvUVNet, UVNet
 from texgs_torch.render.uv_tex_render import uv_tex_render
@@ -48,7 +47,7 @@ from texgs_torch.train.uv_map_gaussian3d import (inverse_world_points,
                                                   masked_cycle_loss,
                                                   net_leaves)
 from texgs_torch.utils.schedules import expon_lr, warmup_multistep
-from texgs_torch.utils.sh import C0
+from texgs_torch.utils.sh import C0, sh02rgb
 from texgs_torch.utils.spans import span, spanned
 
 GAUSS_KEYS = ("xyz", "opacity", "scaling", "rotation", "shs")
@@ -58,10 +57,6 @@ LAMBDAS = ("dssim", "alpha", "depth", "norm", "norm_reg", "norm_smooth",
 
 def rgb2sh0(rgb):
     return (rgb - 0.5) / C0
-
-
-def sh02rgb(sh0):
-    return torch.clamp(C0 * sh0 + 0.5, 0.0, 1.0)
 
 
 def stage3_loss_terms(image, depth, norm, alpha, image_ns, camera: Camera,
@@ -432,12 +427,13 @@ class TextureGaussian3D:
     # ----------------------------------------------------- texture tools
     @torch.no_grad()
     def sphere_map(self, resolution=(512, 1024)) -> torch.Tensor:
-        return cubemap_to_latlong(sh02rgb(self.texture), resolution)
+        """(H, W, 3) equirectangular rgb panorama of the texture."""
+        return cubemap_maps(self.texture, resolution)
 
     @torch.no_grad()
     def cube_map(self) -> torch.Tensor:
         """Cross-layout (3R, 4R, 3) rgb image of the texture."""
-        return faces_to_cross(sh02rgb(self.texture))
+        return cubemap_maps(self.texture)
 
     @torch.no_grad()
     def change_texture(self, cubemap_image, mode: int = 0):

@@ -72,3 +72,8 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 
 def rgb2sh(rgb):
     return (rgb - 0.5) / C0
+
+
+def sh02rgb(sh0):
+    """The DC term's rgb: clamp(C0 * sh0 + 0.5, 0, 1)."""
+    return torch.clamp(C0 * sh0 + 0.5, 0.0, 1.0)
