@@ -1,0 +1,8 @@
+"""Device kernels launched while the ``render`` phase is open, per traced
+stage-1 step (benchmark/spans.py's reduction)."""
+
+from benchmark.metrics_spans import phase_per_step
+
+
+def read(run):
+    return phase_per_step(run, "render", "launches")

@@ -32,7 +32,11 @@ import timeit
 
 sys.path.insert(0, os.getcwd())
 
-ROOFLINE_FNS = ("uvtex_fused", "uvtex_fused_bwd", "tex_term", "tex_term_bwd")
+ROOFLINE_FNS = ("uvtex_fused", "uvtex_fused_bwd", "tex_term", "tex_term_bwd",
+                "raster", "raster_bwd")
+# (the span a step or frame opens, the metrics' suffix) by driver kind
+KINDS = {"train_loop": ("step", "train"), "gs1_train_loop": ("step", "gs1"),
+         "view_loop": ("view", "view")}
 
 
 def span_cost_us(n: int = 200_000) -> tuple[float, float]:
@@ -61,8 +65,7 @@ def span_cost_us(n: int = 200_000) -> tuple[float, float]:
 
 
 def summary(cell: dict, trace: dict, red: dict) -> dict:
-    kind, tag = (("step", "train") if cell["work"]["driver"] == "train_loop"
-                 else ("view", "view"))
+    kind, tag = KINDS[cell["work"]["driver"]]
     steps = red["steps"]
     out = {"steps": steps}
     ph = red["phases"]
@@ -81,7 +84,7 @@ def summary(cell: dict, trace: dict, red: dict) -> dict:
     out["kernel_span_vs_fn_ms"] = {
         fn: [rows.get("kernel." + fn, {}).get("device_s", 0.0) * 1e3,
              trace["fn_device_s"].get(fn, 0.0) * 1e3]
-        for fn in ROOFLINE_FNS}
+        for fn in ROOFLINE_FNS if fn in trace["fn_device_s"]}
     out["table"] = {
         name: {"calls": r["calls"] / steps, "launches": r["launches"] / steps,
                "idle_ms": r["idle_s"] * 1e3 / steps,

@@ -1,8 +1,9 @@
 """The port's spans (texgs_torch/utils/spans.py): recorded into a running
 torch.profiler's trace, a shared null context without one, recorded inside
-an autograd backward; and the stage-3 model's phases, once per training
+an autograd backward; the stage-3 model's phases, once per training
 step and per viewer frame, on the benchmark's cells cut to the test size
-(benchmark/tests/tiny.py)."""
+(benchmark/tests/tiny.py); and the stage-1 model's phases and surgery on
+the stage-1 cell cut the same way (benchmark/tests/tiny_gs1.py)."""
 
 import collections
 
@@ -141,3 +142,52 @@ def test_viewer_frame_phases():
     for phase in ("step", "loss", "backward", "adam",
                   "kernel.uvtex_fused_bwd"):
         assert "texgs::" + phase not in got
+
+
+# ------------------------------------------------ the stage-1 model's phases
+GS1_PHASES = ("render", "loss", "backward", "adam")
+GS1_RENDER = ("render.sh", "render.project", "render.binning", "render.blend")
+
+
+@pytest.fixture(scope="module")
+def gs1_trainer():
+    from benchmark.drivers import gs1_train_loop
+    from benchmark.tests.tiny_gs1 import tiny_gs1_cell
+    cell = tiny_gs1_cell()
+    return gs1_train_loop.Session(cell["config"],
+                                  cell["work"]["traffic_params"], 7, "cpu")
+
+
+def test_stage1_step_phases(gs1_trainer):
+    """step, its four phases and render's sub-spans, once a step, nested
+    as the reduction reads them; no surgery off its schedule."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        gs1_trainer.step()
+    got = names(prof)
+    for name in ("step", *GS1_PHASES, *GS1_RENDER, "kernel.raster",
+                 "kernel.raster_bwd"):
+        assert got["texgs::" + name] == 1, (name, got)
+    assert "texgs::surgery" not in got
+    ev = {e.name[len(spans.PREFIX):]: e.time_range for e in prof.events()
+          if e.name.startswith(spans.PREFIX)}
+    order = [ev[p] for p in GS1_PHASES]
+    assert all(ev["step"].start <= r.start and r.end <= ev["step"].end
+               for r in order)
+    assert all(a.end <= b.start for a, b in zip(order, order[1:]))
+    for sub in GS1_RENDER:
+        assert ev["render"].start <= ev[sub].start
+        assert ev[sub].end <= ev["render"].end
+
+
+def test_stage1_surgery_step(gs1_trainer):
+    """Iteration 19,000: the min-scale reset in ``surgery``, after the
+    step, which takes no Adam step."""
+    gs1_trainer.it = 19000
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        gs1_trainer.step()
+    got = names(prof)
+    assert got["texgs::surgery"] == 1 and got["texgs::step"] == 1, got
+    assert "texgs::adam" not in got
+    ev = {e.name[len(spans.PREFIX):]: e.time_range for e in prof.events()
+          if e.name.startswith(spans.PREFIX)}
+    assert ev["step"].end <= ev["surgery"].start

@@ -25,6 +25,7 @@ from texgs_torch.kernels.binning import (build_pairs, grid_shape,
 from texgs_torch.kernels.project import ProjectedGaussians
 from texgs_torch.kernels.reference import (ALPHA_CLAMP, MIN_ALPHA, T_STOP,
                                            TILE, RasterOutput)
+from texgs_torch.utils.spans import span
 
 # Columns of the per-Gaussian table (N, TABLE_FIXED + n_extra):
 #   0..5: quadratic exponent coefficients [x^2, y^2, x*y, x, y, 1] in the
@@ -194,12 +195,15 @@ def rasterize_tiled(proj: ProjectedGaussians, height: int, width: int,
     (texgs caps them at max(4N, 2^14) and flags an overflow)."""
     from texgs_torch.kernels.raster import raster_pairs
 
-    pairs = build_pairs(proj.means2d, proj.depths, proj.radii, height, width)
-    table = build_gauss_table(proj)
-    # kernels 1 and 1' take the tiles heaviest first
-    pairs = with_tile_order(pairs)
-    tiles_out, t_final, _ = raster_pairs(table, pairs,
-                                         grid_shape(height, width)[1])
-    out = assemble_image(tiles_out, t_final, height, width, bg, 0,
-                         normalize_depth)
+    with span("render.binning"):
+        pairs = build_pairs(proj.means2d, proj.depths, proj.radii, height,
+                            width)
+        # kernels 1 and 1' take the tiles heaviest first
+        pairs = with_tile_order(pairs)
+    with span("render.blend"):
+        table = build_gauss_table(proj)
+        tiles_out, t_final, _ = raster_pairs(table, pairs,
+                                             grid_shape(height, width)[1])
+        out = assemble_image(tiles_out, t_final, height, width, bg, 0,
+                             normalize_depth)
     return out._replace(n_pairs=pairs.n_pairs, overflowed=pairs.overflowed)

@@ -20,6 +20,7 @@ from texgs_torch.kernels import project as proj_k
 from texgs_torch.kernels.project import band_rows
 from texgs_torch.kernels.reference import rasterize_reference
 from texgs_torch.kernels.tile_raster import rasterize_tiled
+from texgs_torch.utils.spans import span
 
 BACKENDS = ("auto", "reference", "scan", "pallas")
 
@@ -69,14 +70,16 @@ def render(viewpoint_camera: Camera, *,
 
     campos = on_device(cam.camera_center)
     if override_color is None:
-        colors = proj_k.sh_colors(features, xyz, campos, active_sh_degree)
+        with span("render.sh"):
+            colors = proj_k.sh_colors(features, xyz, campos, active_sh_degree)
     else:
         colors = override_color
-    proj = proj_k.project_gaussians(
-        xyz, scaling, rotation, opacity, colors, on_device(cam.world_view),
-        on_device(cam.full_proj), campos, cam.width, cam.height, cam.tanfovx,
-        cam.tanfovy, scaling_modifier=scaling_modifier,
-        cov3d_precomp=cov3d_precomp, ndc_offset=ndc_offset)
+    with span("render.project"):
+        proj = proj_k.project_gaussians(
+            xyz, scaling, rotation, opacity, colors, on_device(cam.world_view),
+            on_device(cam.full_proj), campos, cam.width, cam.height,
+            cam.tanfovx, cam.tanfovy, scaling_modifier=scaling_modifier,
+            cov3d_precomp=cov3d_precomp, ndc_offset=ndc_offset)
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
     radii, height = proj.radii, cam.height
     if row_offset is not None:

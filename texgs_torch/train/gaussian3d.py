@@ -36,6 +36,7 @@ from texgs_torch.core.state import GaussianState, init_from_pcd
 from texgs_torch.render.render import render
 from texgs_torch.train import densify, optim
 from texgs_torch.utils.schedules import expon_lr
+from texgs_torch.utils.spans import span, spanned
 
 LAMBDAS = ("dssim", "alpha", "opacity_reg", "depth", "norm", "norm_smooth",
            "norm_reg")
@@ -185,6 +186,7 @@ class Gaussian3D:
         return (flags, lambdas, self._lrs(cur_iter),
                 not self._surgery_planned(cur_iter))
 
+    @spanned("step")
     def compute_loss(self, cur_iter: int, total_iter: int, viewpoint: Camera,
                      render_unused, loss_cfg: Cfg):
         """One training step on ``viewpoint`` (which carries its ground
@@ -198,20 +200,25 @@ class Gaussian3D:
         for p in params.values():
             p.requires_grad_(True)
             p.grad = None
-        ndc = torch.zeros((self.n_points, 2), device=self.device,
-                          requires_grad=True)
         gt_image, gt_alpha = ground_truth(viewpoint, self.device)
         with torch.enable_grad():
-            out = self._render(viewpoint, ndc_offset=ndc)
-            loss, stats = stage1_loss_terms(
-                out["render"], out["depth"], out["norm"], out["alpha"],
-                viewpoint, gt_image, gt_alpha, self.state.get_opacity(), flags,
-                lambdas)
-            loss.backward()
-        if flags[6]:
-            self.stats = densify.add_stats(self.stats, ndc.grad, out["radii"])
+            with span("render"):
+                ndc = torch.zeros((self.n_points, 2), device=self.device,
+                                  requires_grad=True)
+                out = self._render(viewpoint, ndc_offset=ndc)
+            with span("loss"):
+                loss, stats = stage1_loss_terms(
+                    out["render"], out["depth"], out["norm"], out["alpha"],
+                    viewpoint, gt_image, gt_alpha, self.state.get_opacity(),
+                    flags, lambdas)
+            with span("backward"):
+                loss.backward()
+                if flags[6]:
+                    self.stats = densify.add_stats(self.stats, ndc.grad,
+                                                   out["radii"])
         if apply_adam:
-            self.adam.step(params, lrs)
+            with span("adam"):
+                self.adam.step(params, lrs)
         stats = {k: v.detach() for k, v in stats.items()}
         stats["n_pairs"] = out["n_pairs"]
         return stats["total_loss"], stats, {}
@@ -245,25 +252,31 @@ class Gaussian3D:
                          and cur_iter % tc.opacity_prune_interval == 0) or bool(
             tc.opacity_prune_iters and cur_iter in tc.opacity_prune_iters)
         if prune_due:
-            self.state, self.stats = densify.opacity_prune(
-                self.state, self.adam, self.stats,
-                float(tc.opacity_prune_theshold))
+            with span("surgery"):
+                self.state, self.stats = densify.opacity_prune(
+                    self.state, self.adam, self.stats,
+                    float(tc.opacity_prune_theshold))
         if cur_iter <= self._densify_until():
             if (cur_iter > tc.densify_from_iter
                     and cur_iter % tc.densification_interval == 0):
                 size_threshold = (20 if cur_iter > tc.opacity_reset_interval
                                   else None)
-                self.densify_and_prune(float(tc.densify_grad_threshold), 0.005,
-                                       size_threshold, float(oc.percent_dense))
+                with span("surgery"):
+                    self.densify_and_prune(float(tc.densify_grad_threshold),
+                                           0.005, size_threshold,
+                                           float(oc.percent_dense))
             if cur_iter % tc.opacity_reset_interval == 0:
-                self.state = densify.reset_opacity(self.state, self.adam)
+                with span("surgery"):
+                    self.state = densify.reset_opacity(self.state, self.adam)
             if (tc.min_scale_reset_interval
                     and cur_iter > tc.min_scale_reset_from_iter
                     and cur_iter % tc.min_scale_reset_interval == 0):
-                self.state = densify.reset_min_scale(self.state, self.adam)
+                with span("surgery"):
+                    self.state = densify.reset_min_scale(self.state, self.adam)
         elif (tc.min_scale_reset_interval
               and cur_iter % tc.min_scale_reset_interval == 0):
-            self.state = densify.reset_min_scale(self.state, self.adam)
+            with span("surgery"):
+                self.state = densify.reset_min_scale(self.state, self.adam)
 
     def split_noise(self) -> torch.Tensor:
         """(2, N, 3) standard normal offsets of the two split children,

@@ -12,8 +12,18 @@ Spans of the stage-3 model (``train/texture_gaussian3d.py``): ``step``
 (``compute_loss``), ``render`` (``_render``; inside it ``render.uv_net``,
 ``render.project``, ``render.binning``, ``render.blend`` and
 ``render.tex_term``), ``loss``, ``backward``, ``adam``, ``view``
-(``visual_step``) and ``maps`` (its envmap and cross cubemap).  Each
-kernel wrapper with a ``.launches`` counter runs in ``kernel.<name>``.
+(``visual_step``) and ``maps`` (its envmap and cross cubemap).
+
+Spans of the stage-1 model (``train/gaussian3d.py``): ``step``
+(``compute_loss``), ``render`` (the NDC offset and ``_render``; inside it
+``render.sh``, the SH colours, and ``render.project`` from
+``render/render.py``, ``render.binning`` and ``render.blend`` from
+``kernels/tile_raster.py``'s ``rasterize_tiled``), ``loss``, ``backward``
+(the densification stats too), ``adam`` (absent where surgery skips the
+step) and, outside ``step``, ``surgery`` (each prune, densification and
+reset of ``optimize_step``).  Any other caller of ``render`` or
+``rasterize_tiled`` opens the ``render.*`` spans too.  Each kernel wrapper
+with a ``.launches`` counter runs in ``kernel.<name>``.
 """
 
 from __future__ import annotations
