@@ -26,10 +26,23 @@ one card.  Phases, in order; any failure exits non-zero:
                 same output bit for bit); kernel M's two maps of the
                 model's texture (visual_step's 512x1024 panorama and the
                 cross image) against the plain chain, the cross bit for bit;
+  4b. projection -- kernels P and P' (csrc/project.cu, project_bwd.cu) on
+                the benchmark's stage-3 DTU scene (100,000 flat discs) and
+                its first 800x600 view, in the stage-3 form and with stage
+                1's NDC offset: every output against the plain chain
+                (project_plain; the culled opacities and the visible set
+                exactly, the radii counted where they differ) and every
+                gradient against autograd through it; each path's device
+                launches (P and P' one each); P and P' timed queued and
+                host-launched beside their bounds (88 and 128 B a
+                Gaussian) and the 0.02 ms target, and profiled; its
+                entries carry P's launches over phase 5 and P''s over phase
+                7 (run after phase 9);
   5. main    -- 3 orbit views through TextureGaussian3D.visual_step, a
                 change_texture(chessboard, mode=0) retexture, the 3 views
                 again; every kernel's launch count is read over this phase
-                (A and B once a view, M twice: one launch a map);
+                (A, B and P once a view, M twice: one launch a map, P'
+                never: a view renders under no_grad);
   6. timings -- per-view and per-kernel times (CUDA events, median of 5),
                 and one render under torch.profiler: the device's busy
                 share and its time by kernel and by operator;
@@ -44,9 +57,9 @@ one card.  Phases, in order; any failure exits non-zero:
                 grid's: its table, points and output cotangent); then
                 STEPS steps are counted: every loss and parameter must stay
                 finite, the last 5 steps' mean loss must lie below the
-                first 5's, and kernels A, A', B, B', the fused hash encode
-                K5' and its backward K5'' must each launch once a step (the
-                K5 gather never);
+                first 5's, and kernels A, A', B, B', P, P', the fused hash
+                encode K5' and its backward K5'' must each launch once a
+                step (the K5 gather never);
   8. train kernels -- A' and B' against their plain versions on the
                 captured arguments;
   9. train timings -- the step's median time, each kernel's time, plain
@@ -199,7 +212,7 @@ one card.  Phases, in order; any failure exits non-zero:
                 at least the first card reading less 1.5 dB.
 
 The line before the last is a JSON object with one entry per kernel
-(twelve); the last line is {"ok": true, "device": {...}}.
+(fourteen); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --golden-seeds 0,1,2
 
@@ -855,9 +868,14 @@ def device_launches(torch, fn, reps=REPS):
     warm-up call: (their number a call, {name: count a call}).  The trace
     can drop a device event now and then (a profile's first ones most of
     all), so a spin kernel that is not counted goes first (as in
-    profile_device) and the counts are the mean over the calls, rounded."""
+    profile_device) and the counts are the mean over the calls, rounded.
+    The device-side copies of the program's ``texgs::`` spans, which the
+    profiler lists beside the device events, are no operations and are
+    left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from texgs_torch.utils.spans import PREFIX
 
     fn()
     torch.cuda.synchronize()
@@ -869,7 +887,8 @@ def device_launches(torch, fn, reps=REPS):
             fn()
         torch.cuda.synchronize()
     ops = {e.key: e.count / reps for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key}
+           if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key
+           and not e.key.startswith(PREFIX)}
     return round(sum(ops.values())), ops
 
 
@@ -1225,7 +1244,8 @@ def hash_kernel_phase(torch, enc_args, launches):
 def train_phases(torch, model, cams, gt_views):
     """Phases 7-9 (see the module docstring).  Returns (the JSON entries of
     kernels A', B', K5', K5'' and the K5 gather, the step's median ms, its
-    device launches)."""
+    device launches, phase 7's launch counts by kernel)."""
+    from texgs_torch.kernels import project as pj
     from texgs_torch.kernels import tex_term as kt
     from texgs_torch.kernels import uvtex_fused as kf
     from texgs_torch.kernels.cubemap import sample_cubemap
@@ -1254,7 +1274,9 @@ def train_phases(torch, model, cams, gt_views):
 
     counters = {"uvtex_fused": kf.fused_pairs, "tex_term": kt.tex_term,
                 "uvtex_fused_bwd": kf.fused_pairs_backward,
-                "tex_term_bwd": kt.tex_term_backward, **hash_counters()}
+                "tex_term_bwd": kt.tex_term_backward, **hash_counters(),
+                "project": pj.project_gaussians,
+                "project_bwd": pj.project_gaussians_backward}
     launches = check_train_run(
         torch, "train", model, step, counters,
         {name: 0 if name == "hash_gather" else STEPS for name in counters})
@@ -1341,7 +1363,7 @@ def train_phases(torch, model, cams, gt_views):
               "texgs/kernels/pallas_textile.py:819", launches["tex_term_bwd"],
               b_ms, b_plain_ms, b_bound, b_by, err_b),
         *hash_entries,
-    ], step_ms, step_launches
+    ], step_ms, step_launches, launches
 
 
 def check_kernel_1(torch, got, want):
@@ -3539,6 +3561,187 @@ def build_model(torch, device):
     return model, loss.item()
 
 
+# kernels P and P' (csrc/project.cu, project_bwd.cu): the bytes a Gaussian
+# moves in the timed stage-3 form (P reads xyz, scaling, rotation and
+# opacity, 44 B, and writes means2d, depth, conic, radius, opacity and
+# normal, 44 B; P' reads the 44 B of inputs and 40 B of cotangents and
+# writes the 44 B of their gradients, no NDC offset's) and the f32
+# operations a Gaussian (counted from the sources: the chain, and the chain
+# replayed with its transpose)
+P_BYTES, P_BWD_BYTES = 88, 128
+OPS_P, OPS_P_BWD = 250, 600
+# each is below an empty launch's queued reading (0.0049 ms): the target
+P_TARGET_MS = 0.02
+
+
+def projection_phase(torch, device, launches):
+    """Kernels P and P' on the benchmark's stage-3 DTU scene (100,000 flat
+    discs, the gs1 and tgs3 cells' geometry) and its first 800x600 view:
+    each output against the plain chain and each gradient against
+    autograd through it, in the stage-3 form and with stage 1's NDC
+    offset; the device launches of both paths; the times beside the
+    bounds.  launches: {"project": P's launches over phase 5,
+    "project_bwd": P''s over phase 7's steps}.  Returns the two kernels'
+    entries."""
+    from benchmark import harness, program, scene
+    from texgs_torch.kernels import project as pj
+
+    cfg = harness.cell("tgs3-dtu-train")["config"]
+    state, _ = scene.make_state(cfg, 0, device)
+    cam = program.camera(scene.spiral_views(cfg["assumed"]["views"])[0])
+    rot = state["rotation"]
+    inputs = {"xyz": state["xyz"], "scaling": torch.exp(state["scaling"]),
+              "rotation": rot / (torch.linalg.norm(rot, dim=-1, keepdim=True)
+                                 + 1e-12),
+              "opacity": torch.sigmoid(state["opacity"])}
+    inputs = {k: v.detach().contiguous() for k, v in inputs.items()}
+    n = inputs["xyz"].shape[0]
+    host = (cam.world_view, cam.full_proj, cam.camera_center, cam.width,
+            cam.height, cam.tanfovx, cam.tanfovy)
+    dev_cam = [torch.as_tensor(a, device=device) for a in host[:3]]
+    log(f"[projection] P and P' on {n} flat discs (the DTU cells' scene), "
+        f"view 0 at {cam.width}x{cam.height}")
+    outputs = ("means2d", "depths", "conics", "opacities", "normals")
+    gen = torch.Generator(device=device).manual_seed(11)
+    block = torch.randn((n, 10), generator=gen, device=device)
+    cots = [block[:, 0:2], block[:, 2], block[:, 3:6], block[:, 6],
+            block[:, 7:10]]
+    err_p = err_pb = 0.0
+    for form in ("stage 3", "stage 1 (NDC offset)"):
+        ndc = torch.zeros((n, 2), device=device) if form != "stage 3" \
+            else None
+
+        def run(fn, cam_args, dtype=torch.float32):
+            leaves = {k: v.to(dtype, copy=True).requires_grad_(True)
+                      for k, v in inputs.items()}
+            off = None if ndc is None else \
+                ndc.to(dtype, copy=True).requires_grad_(True)
+            out = fn(leaves["xyz"], leaves["scaling"], leaves["rotation"],
+                     leaves["opacity"], None, *cam_args, *host[3:],
+                     ndc_offset=off)
+            wrt = [*leaves.values()] + ([] if off is None else [off])
+            grads = torch.autograd.grad(
+                [getattr(out, k) for k in outputs], wrt,
+                [c.to(dtype, copy=True) for c in cots])
+            return out, grads
+        before = (pj.project_gaussians.launches,
+                  pj.project_gaussians_backward.launches)
+        got, got_g = run(pj.project_gaussians, host[:3])
+        if (pj.project_gaussians.launches - before[0],
+                pj.project_gaussians_backward.launches - before[1]) != (1, 1):
+            fail("the projection did not launch P and P' once each")
+        want, want_g = run(pj.project_plain, dev_cam)
+        exact, exact_g = run(pj.project_plain, [a.double() for a in dev_cam],
+                             torch.float64)
+        torch.cuda.synchronize()
+        for name in ("means2d", "depths", "normals"):
+            g, w = getattr(got, name), getattr(want, name)
+            err_p = max(err_p, check_scaled(
+                torch, f"P {form} {name}", g, w, 1e-6, 1e-5))
+        # each Gaussian's conic may lie from the plain chain's by twice
+        # the plain chain's largest distance from float64 (conic_offsets)
+        rel, own, n_off = pj.conic_offsets(got.conics, want.conics,
+                                           exact.conics)
+        log(f"  P {form} conics: max |kernel - plain| / |float64| a Gaussian "
+            f"{rel.max().item():.3e}; the plain chain's own max "
+            f"{own:.3e} off float64; {n_off} beyond twice that")
+        if n_off:
+            fail(f"P {form}: conics disagree with the plain chain")
+        err_p = max(err_p, (got.conics - want.conics).abs().max().item())
+        if not torch.equal(got.opacities, want.opacities):
+            fail(f"P {form}: the culled opacities differ from the plain chain")
+        if not torch.equal(got.radii > 0, want.radii > 0):
+            fail(f"P {form}: the visible set differs from the plain chain")
+        differ = got.radii != want.radii
+        log(f"  P {form}: {int((got.radii > 0).sum())} visible, "
+            f"{int(differ.sum())} of {n} radii differ from the plain chain's "
+            f"(by at most {int((got.radii - want.radii).abs().max())})")
+        if bool(((got.radii - want.radii).abs() > 1).any()):
+            fail(f"P {form}: a radius differs by more than one")
+        # the gradients: on Gaussians whose determinant is well conditioned
+        # at the check's tolerance; on all, within twice the plain chain's
+        # own largest distance from float64
+        live = (want.conics != 0).any(1)
+        well = (pj.det_condition(exact.conics) <= 10.0) | ~live
+        names = ["xyz", "scaling", "rotation", "opacity"] + \
+            ([] if ndc is None else ["ndc_offset"])
+        for name, g, w, e in zip(names, got_g, want_g, exact_g):
+            g, w, e = (t.reshape(n, -1) for t in (g, w, e))
+            err_pb = max(err_pb, check_scaled(
+                torch, f"P' {form} d {name} ({int(well.sum())} Gaussians "
+                f"with a well-conditioned det)", g[well], w[well], 1e-5,
+                1e-4))
+            own = (w.double() - e)[live].abs().max().item()
+            off = (g - w)[live].abs().max().item()
+            log(f"  P' {form} d {name}, all {int(live.sum())} with a conic: "
+                f"max |kernel - plain| {off:.3e}, the plain chain's own max "
+                f"{own:.3e} off float64")
+            if not off <= 2 * own + 1e-5 * e[live].abs().max().item():
+                fail(f"P' {form} d {name} disagrees with autograd")
+
+    # launches and times, the stage-3 form (the bound's)
+    arg = pj.camera_arg(*host)
+    args = tuple(inputs.values())
+    out = pj.project_gaussians_forward(arg, *args)
+    needs = (True, True, True, True, False, False)
+
+    def fwd():
+        return pj.project_gaussians_forward(arg, *args)
+
+    def bwd():
+        return pj.project_gaussians_backward(arg, *args, None, cots, needs)
+
+    def plain_fwd():
+        return pj.project_plain(*args[:4], None, *dev_cam, *host[3:])
+
+    def plain_fwd_bwd():
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        o = pj.project_plain(*leaves, None, *dev_cam, *host[3:])
+        torch.autograd.grad([getattr(o, k) for k in outputs], leaves,
+                            [c.contiguous() for c in cots])
+    del out
+    p_launches, p_ops = device_launches(torch, fwd)
+    pb_launches, pb_ops = device_launches(torch, bwd)
+    plain_launches, _ = device_launches(torch, plain_fwd)
+    plain_all, _ = device_launches(torch, plain_fwd_bwd)
+    log(f"[projection] device launches: P {p_launches}, P' {pb_launches}; "
+        f"the plain chain {plain_launches} forward (the three camera copies "
+        f"not among them here: its camera is already on the card), "
+        f"{plain_all - plain_launches} in autograd's backward")
+    if (p_launches, pb_launches) != (1, 1):
+        fail(f"P and P' launched {p_launches} and {pb_launches} device "
+             f"operations, not one each: {p_ops}, {pb_ops}")
+    p_ms, p_host = kernel_ms(torch, fwd)
+    pb_ms, pb_host = kernel_ms(torch, bwd)
+    plain_ms = median_ms(torch, plain_fwd)
+    plain_all_ms = median_ms(torch, plain_fwd_bwd)
+    p_bound, p_by = bound(n * P_BYTES, n * OPS_P)
+    pb_bound, pb_by = bound(n * P_BWD_BYTES, n * OPS_P_BWD)
+    log(f"[time] kernel P project: {p_ms:.4f} ms queued (host-launched "
+        f"{p_host:.4f}), bound {p_bound:.4f} ms ({n * P_BYTES / 1e6:.1f} MB, "
+        f"by {p_by}), target {P_TARGET_MS}; plain chain {plain_ms:.3f} ms "
+        "host-launched")
+    log(f"[time] kernel P' project_bwd: {pb_ms:.4f} ms queued (host-launched "
+        f"{pb_host:.4f}), bound {pb_bound:.4f} ms "
+        f"({n * P_BWD_BYTES / 1e6:.1f} MB, by {pb_by}), target "
+        f"{P_TARGET_MS}; plain forward and autograd backward "
+        f"{plain_all_ms:.3f} ms host-launched")
+    profile_device(torch, "kernel P", fwd, p_host)
+    profile_device(torch, "kernel P'", bwd, pb_host)
+    profile_device(torch, "the plain projection, forward and backward",
+                   plain_fwd_bwd, plain_all_ms)
+    for name, ms in (("P", p_ms), ("P'", pb_ms)):
+        if ms > P_TARGET_MS:
+            log(f"  kernel {name}: {ms:.4f} ms queued, above the "
+                f"{P_TARGET_MS} ms target")
+    replaces = "none (XLA ops: texgs/kernels/project.py project_gaussians)"
+    return [entry("project", "texgs_torch/csrc/project.cu", replaces,
+                  launches["project"], p_ms, plain_ms, p_bound, p_by, err_p),
+            entry("project_bwd", "texgs_torch/csrc/project_bwd.cu",
+                  replaces + " and its autodiff", launches["project_bwd"],
+                  pb_ms, plain_all_ms, pb_bound, pb_by, err_pb)]
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3567,6 +3770,7 @@ def main(argv=None) -> int:
     from texgs_torch.kernels.cubemap import (chessboard_cubemap, cubemap_maps,
                                              cubemap_to_latlong, faces_to_cross,
                                              sample_cubemap)
+    from texgs_torch.kernels import project as pj
     from texgs_torch.kernels.tex_term import mlist_tex_term, tex_term
     from texgs_torch.kernels.tile_raster import N_FIXED_F, TABLE_FIXED
     from texgs_torch.kernels.uvtex_fused import fused_pairs, mlist_scan
@@ -3718,9 +3922,12 @@ def main(argv=None) -> int:
 
     # ------------------------------------------------------ 5. main path
     chess = faces_to_cross(chessboard_cubemap(TEX_RES // 16, 16, device=device))
-    fused_pairs.launches = 0
-    tex_term.launches = 0
-    cubemap_maps.launches = 0
+    main_counters = {"uvtex_fused": fused_pairs, "tex_term": tex_term,
+                     "cubemap_maps": cubemap_maps,
+                     "project": pj.project_gaussians,
+                     "project_bwd": pj.project_gaussians_backward}
+    for fn in main_counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     views, retextured = [], []
     for c in cams:
@@ -3730,16 +3937,16 @@ def main(argv=None) -> int:
         retextured.append(model.visual_step(0, 1, c))
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {"uvtex_fused": fused_pairs.launches,
-                "tex_term": tex_term.launches,
-                "cubemap_maps": cubemap_maps.launches}
+    launches = {name: fn.launches for name, fn in main_counters.items()}
     log(f"[main] {2 * N_VIEWS} views (3 + 3 retextured) in {main_s:.3f} s; "
         f"launches {launches}")
+    # a view renders once, under no_grad (no P'), and makes two maps
+    a_view = {"cubemap_maps": 2, "project_bwd": 0}
     for name, n in launches.items():
-        a_view = 2 if name == "cubemap_maps" else 1
-        if n != a_view * 2 * N_VIEWS:
+        if n != a_view.get(name, 1) * 2 * N_VIEWS:
             fail(f"kernel {name} launched {n} times on the main path, "
-                 f"expected {a_view} a view ({a_view * 2 * N_VIEWS})")
+                 f"expected {a_view.get(name, 1)} a view "
+                 f"({a_view.get(name, 1) * 2 * N_VIEWS})")
 
     keys = ("image", "image_no_sh", "depth", "norm", "alpha", "envmap",
             "cubemap")
@@ -3839,8 +4046,14 @@ def main(argv=None) -> int:
         profile_device(torch, "one render of view 0",
                        lambda: model.render(cams[0]), render_ms)
 
-    entries, step_ms, step3_launches = train_phases(torch, model, cams, views)
+    entries, step_ms, step3_launches, train_launches = train_phases(
+        torch, model, cams, views)
     kernels += entries
+
+    # --------------------------------------------------- 4b. projection
+    kernels += projection_phase(torch, device, {
+        "project": launches["project"],
+        "project_bwd": train_launches["project_bwd"]})
     del model, a_args, b_args, got_a, want_a, got_b, want_b, got_maps
     torch.cuda.empty_cache()
 

@@ -41,6 +41,21 @@ Kernels 1 and 1' (the stage-1/2 blend, and the two-kernel stage-3 blend at
 F = 10) are held as A and A' are, without the M-list and uv rows; kernels
 2 and 2' (the two-kernel stage-3 M-lists) as A and A' are, without the
 blend channels.
+The projection's kernel P (csrc/project.cu) rounds the plain chain's
+elementwise operations one at a time in its order: means2d and depths are
+held at 1e-6 of their largest value + 1e-6 |x|, normals at 1e-6 (a
+quaternion norm summed in another order), the culled opacities and the
+visible set exactly; a radius may differ by one only where 3 sqrt(lambda1)
+rounds across an integer, and the differing radii are counted.  A conic
+inverts a 2x2 covariance whose determinant cancels for a disc seen edge
+on, so two float32 orders part by about as much as either parts from
+float64: each Gaussian's conic may lie from the plain chain's by twice the
+plain chain's own largest distance from its float64 evaluation (relative
+to the conic's norm).  P' (csrc/project_bwd.cu) is held against autograd
+through the plain chain at 1e-5 max|x| + 1e-4 |x| on the Gaussians whose
+det is well conditioned ((|ac| + b^2) / |det| <= 10, or det = 0), and on
+all within twice autograd's own largest distance from float64, + 1e-5 of
+the largest gradient.
 """
 
 import math
@@ -1705,3 +1720,432 @@ def test_cubemap_maps_rejects_a_strided_texture(cuda_device):
     tex = sh0_texture(16).to(cuda_device).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         cubemap_maps(tex, (24, 48))
+
+
+# ------------------------------------------- the projection, kernels P and P'
+PROJ_OUTPUTS = ("means2d", "depths", "conics", "opacities", "normals")
+PROJ_INPUTS = ("xyz", "scaling", "rotation", "opacity", "cov3d_precomp",
+               "ndc_offset")
+
+
+def projection_camera():
+    """A camera at the origin looking down +z (world_view the identity,
+    its centre 0), tan(fov / 2) 0.5 and 0.375 at 64x48: both focals are
+    64, so at depth 4 on the axis J's diagonal is 16, exactly."""
+    from texgs_torch.core.camera import make_camera
+    return make_camera(np.eye(3), np.zeros(3), 2 * math.atan(0.5),
+                       2 * math.atan(0.375), 64, 48)
+
+
+# (xyz, scaling, rotation (w, x, y, z), opacity) of the edge cases, seen
+# from projection_camera
+PROJ_EDGE_ROWS = (
+    ((0.0, 0.0, 0.1), (0.1, 0.2, 0.3), (0.9, 0.1, 0.2, 0.3), 0.5),   # near
+    ((0.3, 0.2, -1.0), (0.1, 0.2, 0.3), (0.9, 0.1, 0.2, 0.3), 0.5),  # behind
+    ((10.0, 0.5, 2.0), (0.1, 0.2, 0.3), (0.8, -0.3, 0.2, 0.1), 0.5),  # x clamp
+    ((0.2, -10.0, 2.0), (0.3, 0.2, 0.1), (0.8, 0.3, -0.2, 0.4), 0.5),  # y clamp
+    ((0.1, 0.1, 3.0), (0.1, 0.2, 0.3), (0.7, 0.1, 0.5, 0.2), 0.0),  # op 0
+    ((0.5, 0.2, 5.0), (0.1, 0.1, 0.2), (0.6, 0.2, 0.1, 0.3), 0.6),  # ties
+    ((0.5, -0.2, 5.0), (0.2, 0.1, 0.1), (0.6, 0.2, 0.1, 0.3), 0.6),
+    ((-0.3, 0.1, 4.0), (0.1, 0.1, 0.1), (0.6, -0.2, 0.1, 0.3), 0.6),
+    ((1.0, 0.0, 4.0), (0.2, 0.05, 0.2), (1.0, 0.0, 0.0, 0.0), 0.7),  # sign 0
+    ((0.0, 0.0, 4.0), (0.2, 0.2, 0.05), (1.0, 0.0, 0.0, 0.0), 0.7),  # away
+)
+# a packed covariance at (0, 0, 4) whose dilated screen covariance has
+# a = b = 0 exactly (16^2 * (-0.3 / 256) = -0.3): det = 0
+DEGENERATE_XYZ = (0.0, 0.0, 4.0)
+DEGENERATE_COV = (-0.3 / 256.0, 0.0, 0.0, 0.02, 0.0, 0.05)
+
+
+def projection_inputs(case, n=2000, seed=0):
+    """CPU inputs of a projection case: (dict of PROJ_INPUTS, camera,
+    scaling_modifier).  Random Gaussians in and around the frustum of
+    projection_camera (unnormalised quaternions, opacities in [0.05, 1])
+    after PROJ_EDGE_ROWS; ``flat_discs`` is the benchmark's stage-3 scene
+    cut to its test size, seen from one of its views."""
+    rng = np.random.default_rng(seed)
+    if case == "flat_discs":
+        from benchmark import program, scene
+        from benchmark.tests.tiny import tiny_cell
+        cfg = tiny_cell("tgs3-dtu-train")["config"]
+        state, _ = scene.make_state(cfg, 7, "cpu")
+        cam = program.camera(scene.spiral_views(cfg["assumed"]["views"])[0])
+        inputs = {"xyz": state["xyz"], "scaling": torch.exp(state["scaling"]),
+                  "rotation": state["rotation"],
+                  "opacity": torch.sigmoid(state["opacity"]),
+                  "cov3d_precomp": None, "ndc_offset": None}
+        return {k: v if v is None else v.detach().contiguous()
+                for k, v in inputs.items()}, cam, 1.0
+    cam = projection_camera()
+    z = rng.uniform(0.5, 8.0, size=n)
+    xy = rng.uniform(-0.9, 0.9, size=(n, 2)) * z[:, None] * [0.5, 0.375]
+    rows = list(zip(*PROJ_EDGE_ROWS))
+    xyz = np.concatenate([rows[0], np.column_stack([xy, z])])
+    scaling = np.concatenate([rows[1],
+                              np.exp(rng.uniform(-4.0, -1.0, size=(n, 3)))])
+    rotation = np.concatenate([rows[2], rng.normal(size=(n, 4))])
+    opacity = np.concatenate([rows[3], rng.uniform(0.05, 1.0, size=n)])
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32))
+    inputs = {"xyz": f32(xyz), "scaling": f32(scaling),
+              "rotation": f32(rotation), "opacity": f32(opacity[:, None]),
+              "cov3d_precomp": None, "ndc_offset": None}
+    modifier = 0.7 if case == "modifier" else 1.0
+    if case == "ndc":
+        inputs["ndc_offset"] = f32(rng.normal(scale=0.01, size=(len(xyz), 2)))
+    if case in ("packed", "full"):
+        a = rng.normal(scale=0.05, size=(len(xyz), 3, 3))
+        full = a @ a.transpose(0, 2, 1)
+        full[0] = [[DEGENERATE_COV[0], 0.0, 0.0], [7.0, 0.02, 0.0],
+                   [7.0, 7.0, 0.05]]   # the lower triangle is never read
+        inputs["xyz"][0] = f32(DEGENERATE_XYZ)
+        iu = np.triu_indices(3)
+        inputs["cov3d_precomp"] = (f32(full) if case == "full"
+                                   else f32(full[:, iu[0], iu[1]]))
+    return inputs, cam, modifier
+
+
+def project_with(fn, inputs, cam, modifier, device, dtype=torch.float32):
+    """fn (project_gaussians or project_plain) on copies of the inputs on
+    ``device`` that require a gradient: (ProjectedGaussians, leaves)."""
+    leaves = {k: None if v is None
+              else v.to(device, copy=True).requires_grad_(True)
+              for k, v in inputs.items()}
+    as_t = (lambda a: torch.as_tensor(a, dtype=dtype, device=device)) \
+        if fn is project.project_plain else (lambda a: a)
+    out = fn(leaves["xyz"], leaves["scaling"], leaves["rotation"],
+             leaves["opacity"], None, as_t(cam.world_view),
+             as_t(cam.full_proj), as_t(cam.camera_center), cam.width,
+             cam.height, cam.tanfovx, cam.tanfovy,
+             scaling_modifier=modifier,
+             cov3d_precomp=leaves["cov3d_precomp"],
+             ndc_offset=leaves["ndc_offset"])
+    return out, leaves
+
+
+@pytest.mark.parametrize("case", ["plain", "packed", "full"])
+def test_projection_wrapper_runs_plain_version_on_cpu(case):
+    """On CPU tensors project_gaussians is project_plain, bit for bit,
+    outputs and gradients, from the camera's numpy arrays, and counts no
+    launch."""
+    inputs, cam, modifier = projection_inputs(case, n=200)
+    before = (project.project_gaussians.launches,
+              project.project_gaussians_backward.launches)
+    got, got_leaves = project_with(project.project_gaussians, inputs, cam,
+                                   modifier, "cpu")
+    want, want_leaves = project_with(project.project_plain, inputs, cam,
+                                     modifier, "cpu")
+    for name in (*PROJ_OUTPUTS, "radii"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    cots = [torch.ones_like(getattr(want, k)) for k in PROJ_OUTPUTS]
+    torch.autograd.backward([getattr(got, k) for k in PROJ_OUTPUTS], cots)
+    torch.autograd.backward([getattr(want, k) for k in PROJ_OUTPUTS], cots)
+    for k, leaf in got_leaves.items():
+        if leaf is not None:
+            assert (leaf.grad is None) == (want_leaves[k].grad is None), k
+            if leaf.grad is not None:
+                assert torch.equal(leaf.grad, want_leaves[k].grad), k
+    assert (project.project_gaussians.launches,
+            project.project_gaussians_backward.launches) == before
+
+
+def test_camera_arg_holds_the_plain_chains_numbers():
+    """Kernel P's camera: the matrices and centre as float32, the focals
+    and clamp limits as a float32 tensor meets them, and compute_cov2d's
+    quad matrix, each entry rounded as the plain chain forms it."""
+    cam = orbit_cameras(1, radius=3.5, width=80, height=64)[0]
+    arg = project.camera_arg(cam.world_view, cam.full_proj,
+                             cam.camera_center, 80, 64, cam.tanfovx,
+                             cam.tanfovy, 0.7)
+    f32 = np.float32
+    assert list(arg.world_view) == cam.world_view.ravel().tolist()
+    assert list(arg.full_proj) == cam.full_proj.ravel().tolist()
+    assert list(arg.campos) == cam.camera_center.tolist()
+    assert arg.focal_x == f32(80 / (2.0 * cam.tanfovx))
+    assert arg.lim_y == f32(1.3 * cam.tanfovy)
+    assert (arg.width, arg.height, arg.scaling_modifier) == (80, 64, f32(0.7))
+    w = torch.as_tensor(cam.world_view)[:3, :3].T
+    quad = torch.stack([torch.stack([
+        w[i][0] * w[j][0], w[i][0] * w[j][1] + w[i][1] * w[j][0],
+        w[i][0] * w[j][2] + w[i][2] * w[j][0], w[i][1] * w[j][1],
+        w[i][1] * w[j][2] + w[i][2] * w[j][1], w[i][2] * w[j][2]])
+        for i, j in zip([0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2])], dim=1)
+    assert list(arg.quad) == quad.ravel().tolist()
+    # a tensor camera gives the same numbers
+    again = project.camera_arg(*(torch.as_tensor(a) for a in (
+        cam.world_view, cam.full_proj, cam.camera_center)), 80, 64,
+        cam.tanfovx, cam.tanfovy, 0.7)
+    assert bytes(again) == bytes(arg)
+
+
+@pytest.mark.cuda
+def test_projection_rejects_bad_inputs(cuda_device):
+    inputs, cam, _ = projection_inputs("plain", n=64)
+    args = {k: v if v is None else v.to(cuda_device)
+            for k, v in inputs.items()}
+    arg = project.camera_arg(cam.world_view, cam.full_proj, cam.camera_center,
+                             cam.width, cam.height, cam.tanfovx, cam.tanfovy)
+    bad = dict(args, rotation=args["rotation"].T.contiguous().T)
+    with pytest.raises(ValueError, match="contiguous"):
+        project.project_gaussians_forward(arg, *bad.values())
+    bad = dict(args, opacity=args["opacity"].double())
+    with pytest.raises(ValueError, match="float32"):
+        project.project_gaussians_forward(arg, *bad.values())
+    bad = dict(args, cov3d_precomp=torch.zeros(
+        (args["xyz"].shape[0], 5), device=cuda_device))
+    with pytest.raises(ValueError, match="cov3d_precomp"):
+        project.project_gaussians_forward(arg, *bad.values())
+
+
+def assert_projection_close(got, want, exact, case):
+    """Kernel P's outputs against the plain chain's (tolerances: the module
+    docstring); exact: the plain chain in float64.  Returns the count of
+    radii that differ."""
+    rel, plain_err, off = project.conic_offsets(got.conics, want.conics,
+                                                exact.conics)
+    print(f"projection {case}: conics max |kernel - plain| / |float64| "
+          f"{rel.max().item() if rel.numel() else 0.0:.3g} a Gaussian, the "
+          f"plain chain's own max {plain_err:.3g} off float64, {off} beyond "
+          f"twice that")
+    assert off == 0, "conics"
+    for name, atol, rtol in (("means2d", 1e-6, 1e-6), ("depths", 1e-6, 1e-6),
+                             ("normals", 1e-6, 0.0)):
+        g, w = getattr(got, name), getattr(want, name)
+        scale = w.abs().max().item() if w.numel() else 0.0
+        err = (g - w).abs()
+        off = int((err > atol * scale + rtol * w.abs()).sum())
+        print(f"projection {case}: {name} max |kernel - plain| "
+              f"{err.max().item() if err.numel() else 0.0:.3g} (max "
+              f"|plain| {scale:.3g}), {off} beyond")
+        assert off == 0, name
+    assert torch.equal(got.opacities, want.opacities)
+    assert torch.equal(got.radii > 0, want.radii > 0), "the visible set"
+    differ = got.radii != want.radii
+    # a radius may differ only where 3 sqrt(lambda1) lies within rounding
+    # of an integer, and then by one
+    assert bool(((got.radii - want.radii).abs()[differ] == 1).all())
+    return int(differ.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "modifier", "ndc", "packed",
+                                  "full", "flat_discs"])
+def test_projection_kernels_match_plain(cuda_device, case):
+    """Kernel P against the plain chain on the card, and P' against
+    autograd through it on the same cotangents (read through strided
+    views), for every input that takes a gradient; one launch each; the
+    plain chain in float64 tells how far two float32 orders may part."""
+    inputs, cam, modifier = projection_inputs(case)
+    before = (project.project_gaussians.launches,
+              project.project_gaussians_backward.launches)
+    runs = [project_with(project.project_gaussians, inputs, cam, modifier,
+                         cuda_device),
+            project_with(project.project_plain, inputs, cam, modifier,
+                         cuda_device),
+            project_with(project.project_plain, {
+                k: None if v is None else v.double()
+                for k, v in inputs.items()}, cam, modifier, cuda_device,
+                torch.float64)]
+    (got, got_leaves), (want, want_leaves), (exact, exact_leaves) = runs
+    n_radii = assert_projection_close(got, want, exact, case)
+    print(f"projection {case}: {n_radii} of {got.radii.numel()} radii differ")
+    if case != "flat_discs":   # the edge rows do what they are there for
+        radii = got.radii.tolist()
+        assert radii[1] == radii[4] == 0            # behind, opacity 0
+        assert radii[0] == 0                        # near plane, or det = 0
+        assert got.normals[8].tolist() == [0.0, 1.0, 0.0]    # sign 0 -> +1
+        assert got.normals[9].tolist() == [0.0, 0.0, -1.0]   # faces away
+        if case in ("packed", "full"):
+            assert got.conics[0].tolist() == [0.0, 0.0, 0.0]
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    n = got.depths.shape[0]
+    block = torch.randn((n, 16), generator=gen, device=cuda_device)
+    # column views of one block: strided cotangents
+    cots = [block[:, 0:2], block[:, 2], block[:, 3:6], block[:, 6],
+            block[:, 7:10]]
+    for out, dtype in ((got, None), (want, torch.float32),
+                       (exact, torch.float64)):
+        torch.autograd.backward(
+            [getattr(out, k) for k in PROJ_OUTPUTS],
+            cots if dtype is None else [c.to(dtype) for c in cots])
+    assert (project.project_gaussians.launches - before[0],
+            project.project_gaussians_backward.launches - before[1]) == (1, 1)
+    # Gaussians whose float32 det is 0 have no float64 twin (there det is
+    # not 0): they are held at the tight tolerance
+    live = (want.conics != 0).any(1)
+    well = (project.det_condition(exact.conics) <= 10.0) | ~live
+    for k in PROJ_INPUTS:
+        g, w, e = got_leaves[k], want_leaves[k], exact_leaves[k]
+        if g is None:
+            continue
+        assert (g.grad is None) == (w.grad is None), k
+        if w.grad is None:   # scaling beside a given covariance
+            continue
+        assert bool(torch.isfinite(g.grad).all()), k
+        err = (g.grad - w.grad).abs()
+        rows = err.reshape(n, -1)[well]
+        want_rows = w.grad.reshape(n, -1)[well]
+        scale = want_rows.abs().max().item() if want_rows.numel() else 0.0
+        off = int((rows > 1e-5 * scale + 1e-4 * want_rows.abs()).sum())
+        own = (w.grad.double() - e.grad).reshape(n, -1)[live].abs()
+        own = own.max().item() if own.numel() else 0.0
+        top = e.grad.reshape(n, -1)[live].abs()
+        top = top.max().item() if top.numel() else 0.0
+        err_live = err.reshape(n, -1)[live]
+        err_live = err_live.max().item() if err_live.numel() else 0.0
+        print(f"projection {case}: d {k} max |kernel - autograd| "
+              f"{err.max().item():.3g} (max |autograd| "
+              f"{w.grad.abs().max().item():.3g}); {off} beyond on the "
+              f"{int(well.sum())} Gaussians with a well-conditioned det; "
+              f"autograd's own max {own:.3g} off float64")
+        assert off == 0, k
+        assert err_live <= 2 * own + 1e-5 * top, k
+
+
+@pytest.mark.cuda
+def test_projection_kernels_empty(cuda_device):
+    inputs, cam, _ = projection_inputs("plain", n=0)
+    inputs = {k: v if v is None else v[:0].contiguous()
+              for k, v in inputs.items()}
+    before = (project.project_gaussians.launches,
+              project.project_gaussians_backward.launches)
+    got, leaves = project_with(project.project_gaussians, inputs, cam, 1.0,
+                               cuda_device)
+    assert got.means2d.shape == (0, 2) and got.radii.shape == (0,)
+    (got.means2d.sum() + got.conics.sum()).backward()
+    assert leaves["xyz"].grad.shape == (0, 3)
+    assert (project.project_gaussians.launches,
+            project.project_gaussians_backward.launches) == before
+
+
+@pytest.mark.cuda
+def test_projection_without_grad_launches_no_backward(cuda_device):
+    inputs, cam, _ = projection_inputs("plain", n=64)
+    before = (project.project_gaussians.launches,
+              project.project_gaussians_backward.launches)
+    with torch.no_grad():
+        got, _ = project_with(project.project_gaussians, inputs, cam, 1.0,
+                              cuda_device)
+    assert not got.means2d.requires_grad
+    plain = {k: None if v is None else v.to(cuda_device)
+             for k, v in inputs.items()}
+    project.project_gaussians(
+        plain["xyz"], plain["scaling"], plain["rotation"], plain["opacity"],
+        None, cam.world_view, cam.full_proj, cam.camera_center, cam.width,
+        cam.height, cam.tanfovx, cam.tanfovy)   # no input needs a gradient
+    assert (project.project_gaussians.launches - before[0],
+            project.project_gaussians_backward.launches - before[1]) == (2, 0)
+
+
+def test_plain_twin_swaps_the_projection():
+    """verify_compiled's plain twin replaces project_gaussians with
+    project_plain, fed the camera's numpy arrays as tensors, so the twin's
+    renders check kernels P and P'."""
+    from texgs_torch.tools.verify_compiled import plain_kernels
+
+    inputs, cam, modifier = projection_inputs("ndc", n=200)
+    want, _ = project_with(project.project_plain, inputs, cam, modifier,
+                           "cpu")
+    wrapper = project.project_gaussians
+    with plain_kernels():
+        assert project.project_gaussians is not wrapper
+        got, _ = project_with(project.project_gaussians, inputs, cam,
+                              modifier, "cpu")
+    assert project.project_gaussians is wrapper
+    for name in (*PROJ_OUTPUTS, "radii"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+def test_verifier_refuses_a_corrupted_projection_on_the_card(cuda_device,
+                                                            monkeypatch):
+    """Kernel P's means moved one pixel right: the verifier's stage-1
+    check, whose twin runs the plain projection, fails."""
+    verify_compiled = _small_verifier(monkeypatch)
+    clean = project.project_gaussians_forward
+
+    def corrupted(*args, **kw):
+        means2d, *rest = clean(*args, **kw)
+        return (means2d + torch.tensor([1.0, 0.0], device=means2d.device),
+                *rest)
+    monkeypatch.setattr(project, "project_gaussians_forward", corrupted)
+    ok, results = verify_compiled.verify_raster(20000, 128, 128,
+                                                device=cuda_device)
+    assert not ok
+    assert results["fwd_image"] > verify_compiled.REL_TOL_FWD
+
+
+def reduced_spans(tmp_path, fn, n):
+    """benchmark.spans' reduction of a torch.profiler trace of n calls of
+    fn, behind a spin kernel (the trace can miss a profile's first device
+    events)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import spans
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(4_000_000)
+        torch.cuda.synchronize()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return spans.reduce(json.loads(path.read_text())["traceEvents"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["gs1-dtu-train", "tgs3-dtu-train",
+                                  "tgs3-obj-view"])
+def test_projection_engages_in_each_cell(cuda_device, tmp_path, cell):
+    """On the benchmark's cells cut to their test size, a training step or
+    a viewer frame runs render.project as one launch of kernel P and no
+    host sync, and a training step's backward one launch of P'; a frame
+    (rendered under no_grad) launches no P'."""
+    from benchmark.tests.tiny import tiny_cell
+    if cell == "gs1-dtu-train":
+        from benchmark.drivers import gs1_train_loop
+        from benchmark.tests.tiny_gs1 import tiny_gs1_cell
+        c = tiny_gs1_cell()
+        ses = gs1_train_loop.Session(c["config"], c["work"]["traffic_params"],
+                                     7, cuda_device)
+        fn, grads = ses.step, 1
+    elif cell == "tgs3-dtu-train":
+        from benchmark.drivers import train_loop
+        c = tiny_cell(cell)
+        ses = train_loop.Session(c["config"], c["work"]["traffic_params"], 7,
+                                 cuda_device)
+        fn, grads = ses.step, 1
+    else:
+        from benchmark import program, scene
+        from benchmark.drivers import view_loop
+        c = tiny_cell(cell)
+        cfg, work = c["config"], c["work"]["traffic_params"]
+        state, _ = scene.make_state(cfg, 7, cuda_device)
+        model = program.build_model(cfg, state, view_loop.hyper(cfg),
+                                    cuda_device, train=False)
+        cam = program.camera(view_loop.orbit(work, 7)(0))
+
+        def fn():
+            model.visual_step(0, 0, cam, None)
+        grads = 0
+    fn()
+    n = 2
+    before = (project.project_gaussians.launches,
+              project.project_gaussians_backward.launches)
+    rows = reduced_spans(tmp_path, fn, n)["spans"]
+    assert (project.project_gaussians.launches - before[0],
+            project.project_gaussians_backward.launches - before[1]) == \
+        (n, grads * n)
+    empty = {"launches": 0, "syncs": 0}
+    own, kernel = rows["render.project"], rows.get("kernel.project", empty)
+    bwd = rows.get("kernel.project_bwd", empty)
+    print(f"{cell}: render.project {own['launches']} + kernel.project "
+          f"{kernel['launches']} launches, {own['syncs'] + kernel['syncs']} "
+          f"syncs in {n} renders; kernel.project_bwd {bwd['launches']}")
+    assert own["launches"] + kernel["launches"] == n
+    assert own["syncs"] + kernel["syncs"] == 0
+    assert bwd["launches"] == grads * n and bwd["syncs"] == 0

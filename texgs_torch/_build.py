@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_SOURCES = ("uvtex_fused", "uvtex_fused_bwd", "tex_term", "tex_term_bwd",
                   "hash_gather", "raster", "raster_bwd", "uvtex_mlist",
                   "uvtex_mlist_bwd", "hash_encode", "hash_encode_bwd",
-                  "cubemap_maps")
+                  "cubemap_maps", "project", "project_bwd")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -105,12 +105,12 @@ def render_slice(camera: Camera, *, xyz, opacity, scaling, rotation,
     def on_device(a):
         return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
-    campos = on_device(cam.camera_center)
-    colors = (proj_k.sh_colors(features, xyz, campos, active_sh_degree)
+    colors = (proj_k.sh_colors(features, xyz, on_device(cam.camera_center),
+                               active_sh_degree)
               if override_color is None else override_color)
     proj = proj_k.project_gaussians(
-        xyz, scaling, rotation, opacity, colors, on_device(cam.world_view),
-        on_device(cam.full_proj), campos, cam.width, cam.height, cam.tanfovx,
+        xyz, scaling, rotation, opacity, colors, cam.world_view,
+        cam.full_proj, cam.camera_center, cam.width, cam.height, cam.tanfovx,
         cam.tanfovy, ndc_offset=ndc_offset)
     radii, height = proj.radii, cam.height
     if row_offset is not None:
@@ -140,19 +140,15 @@ def render_uv_slice(camera: Camera, *, xyz, opacity, scaling, rotation, uvs,
     pair count)."""
     cam = camera
     dev = xyz.device
-
-    def on_device(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=dev)
-
+    # colors come from the texture (rasterize_uvtex)
     proj = proj_k.project_gaussians(
-        xyz, scaling, rotation, opacity, torch.zeros_like(xyz),
-        on_device(cam.world_view), on_device(cam.full_proj),
-        on_device(cam.camera_center), cam.width, cam.height, cam.tanfovx,
-        cam.tanfovy)
+        xyz, scaling, rotation, opacity, None, cam.world_view, cam.full_proj,
+        cam.camera_center, cam.width, cam.height, cam.tanfovx, cam.tanfovy)
     mine = depth_slice(proj, index, n_slices)
     out = rasterize_uvtex(
-        ProjectedGaussians(*(f[mine] for f in proj)), scaling[mine],
-        rotation[mine], xyz[mine], uvs[mine], grad_uvs[mine], texture,
+        ProjectedGaussians(*(None if f is None else f[mine] for f in proj)),
+        scaling[mine], rotation[mine], xyz[mine], uvs[mine], grad_uvs[mine],
+        texture,
         None if shs is None else shs[mine], active_sh_degree, cam,
         torch.zeros(3, device=dev), m=m, filter_mode=filter_mode,
         with_no_sh=with_no_sh, backend=backend, tex_backend=tex_backend,

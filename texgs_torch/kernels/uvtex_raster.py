@@ -254,7 +254,8 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
     (kernels 1 and 2) for ``pallas`` and ``scan``, the dense oracle for
     ``reference`` (``m`` and ``m_tail`` then have no part); kernel B's
     exact texture term for every ``tex_backend``.
-    proj must carry zero colors (the base SH residual is injected here).
+    proj's colors are not read (the base SH residual takes their place
+    here; uv_tex_render passes None).
     with_no_sh: also return ``image_no_sh``, the texture-only image a
     second rasterization at active_sh_degree=0 would give.  The
     per-intersection color is linear in the per-Gaussian SH term, so one

@@ -68,16 +68,18 @@ def render(viewpoint_camera: Camera, *,
     def on_device(a):
         return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
-    campos = on_device(cam.camera_center)
     if override_color is None:
         with span("render.sh"):
-            colors = proj_k.sh_colors(features, xyz, campos, active_sh_degree)
+            colors = proj_k.sh_colors(features, xyz,
+                                      on_device(cam.camera_center),
+                                      active_sh_degree)
     else:
         colors = override_color
     with span("render.project"):
+        # the camera's host arrays: kernel P takes them by value
         proj = proj_k.project_gaussians(
-            xyz, scaling, rotation, opacity, colors, on_device(cam.world_view),
-            on_device(cam.full_proj), campos, cam.width, cam.height,
+            xyz, scaling, rotation, opacity, colors, cam.world_view,
+            cam.full_proj, cam.camera_center, cam.width, cam.height,
             cam.tanfovx, cam.tanfovy, scaling_modifier=scaling_modifier,
             cov3d_precomp=cov3d_precomp, ndc_offset=ndc_offset)
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)

@@ -50,17 +50,12 @@ def uv_tex_render(viewpoint_camera: Camera, *,
     takes them (a depth slice's unnormalised depth; a band of rows).
     """
     cam = viewpoint_camera
-    dev = xyz.device
-
-    def on_device(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=dev)
-
     with span("render.project"):
+        # colors come from the texture (rasterize_uvtex); the camera's host
+        # arrays go to kernel P by value
         proj = proj_k.project_gaussians(
-            xyz, scaling, rotation, opacity,
-            torch.zeros_like(xyz),  # colors come from the texture
-            on_device(cam.world_view), on_device(cam.full_proj),
-            on_device(cam.camera_center), cam.width, cam.height,
+            xyz, scaling, rotation, opacity, None, cam.world_view,
+            cam.full_proj, cam.camera_center, cam.width, cam.height,
             cam.tanfovx, cam.tanfovy)
 
     out = rasterize_uvtex(

@@ -9,14 +9,14 @@ plain PyTorch version (``plain_kernels``); nothing on the main path
 reaches that swap.
 
 Checks:
-  raster      : the stage-1 render (kernels 1, 1'): image, alpha, depth
-                (covered pixels), norm; gradients into xyz, scaling,
+  raster      : the stage-1 render (kernels P, 1, P', 1'): image, alpha,
+                depth (covered pixels), norm; gradients into xyz, scaling,
                 rotation, opacity, f_dc and f_rest
   uvtex       : uv_tex_render at m = 32 on the two-kernel path
-                (backend "pallas": kernels 1, 2, B, 1', 2', B'): the image;
-                gradients into the texture, the uvs and xyz
-  uvtex_fused : the same on the fused path (backend "auto": A, B, A', B'),
-                the port's main path
+                (backend "pallas": kernels P, 1, 2, B, P', 1', 2', B'): the
+                image; gradients into the texture, the uvs and xyz
+  uvtex_fused : the same on the fused path (backend "auto": P, A, B, P',
+                A', B'), the port's main path
   tex_term    : kernels B and B' on a coherent M-list: the term, and its
                 gradients into the M-list's live slots and the texture
 
@@ -131,7 +131,7 @@ def _in_frame(outs, n_tiles, span):
 
 @contextlib.contextmanager
 def plain_kernels(band=None, seen=None):
-    """Every kernel wrapper on the render paths (1, 2, A, B with their
+    """Every kernel wrapper on the render paths (P, 1, 2, A, B with their
     backwards) swapped for its plain PyTorch version, differentiable by
     autograd, inside the block.
 
@@ -139,6 +139,7 @@ def plain_kernels(band=None, seen=None):
     other tiles' outputs are zeros (a cotangent masked to the band sees no
     difference).  seen: a dict that gets the largest tile's pair count and
     the tile count of the pair lists the block's scans took."""
+    from texgs_torch.kernels import project as kp
     from texgs_torch.kernels import raster as kr
     from texgs_torch.kernels import tex_term as kt
     from texgs_torch.kernels import uvtex_fused as kf
@@ -176,7 +177,16 @@ def plain_kernels(band=None, seen=None):
                          img.new_zeros((3, rows - r1 * TILE, width))], dim=1)
         return img[:, :height]
 
-    with _swapped([(kr, "raster_pairs", scan(kr.raster_scan, 1)),
+    def project(xyz, scaling, rotation, opacity, colors, world_view,
+                full_proj, campos, *args, **kw):
+        def on_device(a):
+            return torch.as_tensor(a, dtype=torch.float32, device=xyz.device)
+        return kp.project_plain(xyz, scaling, rotation, opacity, colors,
+                                on_device(world_view), on_device(full_proj),
+                                on_device(campos), *args, **kw)
+
+    with _swapped([(kp, "project_gaussians", project),
+                   (kr, "raster_pairs", scan(kr.raster_scan, 1)),
                    (km, "mlist_pairs", scan(km.mlist_only_scan, 2)),
                    (kf, "fused_pairs", scan(kf.mlist_scan, 2)),
                    (kt, "tex_term", tex)]):
