@@ -419,20 +419,17 @@ def call_unpadded(torch, lib, args):
     gradient itself (the parent's, UNPADDED): the wrapper's call with a
     zeroed gradient and no pack."""
     from texgs_torch import _build
-    from texgs_torch.kernels.tex_term import FILTER_MODES, _I, _P
+    from texgs_torch.kernels.tex_term import FILTER_MODES
 
     mlist, texture, g_img, height, width, mode = args
     n_tiles, _, m, _ = mlist.shape
     d_mlist = torch.empty_like(mlist)
     d_texture = torch.zeros_like(texture)
-    fn = lib.tex_term_backward
-    fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
-    p = _build.ptr
-    err = fn(p(mlist), p(texture), texture.shape[1], FILTER_MODES[mode],
-             n_tiles, m, -(-width // 16), height, width, p(g_img), p(d_mlist),
-             p(d_texture), _build.stream_of(mlist))
-    if err:
-        raise RuntimeError(f"tex_term_backward: CUDA error {err}")
+    _build._loaded["tex_term_bwd"] = lib
+    _build.launch("tex_term_bwd", "tex_term_backward", "PPiiiiiiiPPP", mlist,
+                  texture, texture.shape[1], FILTER_MODES[mode], n_tiles, m,
+                  -(-width // 16), height, width, g_img, d_mlist, d_texture,
+                  like=mlist)
     return d_mlist, d_texture
 
 

@@ -59,11 +59,14 @@ the largest gradient.
 """
 
 import math
+import re
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
+from texgs_torch import _build
 from texgs_torch.core.state import init_from_pcd
 from texgs_torch.data.synthetic import (orbit_cameras,
                                         textured_sphere_point_cloud)
@@ -1065,9 +1068,6 @@ def test_raster_rejects_channels_off_the_path(cuda_device):
     """Kernel 1 is built for F = 7 (stages 1 and 2) and F = 10 (the
     two-kernel stage-3 render) only: the wrapper refuses another F, and so
     does the C entry (cudaErrorInvalidValue)."""
-    from texgs_torch import _build
-    from texgs_torch.kernels import raster as kr
-
     table, pairs, gx = _to1(cuda_device, kernel_1_inputs(n=200))
     wide = torch.cat([table, table[:, :1]], dim=1).contiguous()   # F = 8
     with pytest.raises(ValueError, match="blend channels"):
@@ -1076,18 +1076,19 @@ def test_raster_rejects_channels_off_the_path(cuda_device):
     out = torch.empty((n_tiles, 256, 8), device=cuda_device)
     t_fin = torch.empty((n_tiles, 256), device=cuda_device)
     n_eval = torch.empty((n_tiles, 256), dtype=torch.int32, device=cuda_device)
-    p = _build.ptr
     order = binning.heaviest_first(pairs.tile_counts)
-    err = _build.function("raster", "raster_forward", kr._FWD_ARGS)(
-        p(wide), wide.shape[1], p(pairs.pair_gauss), p(pairs.tile_start),
-        p(pairs.tile_end), p(order), n_tiles, gx, 8, p(out), p(t_fin),
-        p(n_eval), _build.stream_of(wide))
-    assert err == 1  # cudaErrorInvalidValue
-    err = _build.function("raster_bwd", "raster_backward", kr._BWD_ARGS)(
-        p(wide), wide.shape[1], p(pairs.pair_gauss), p(pairs.tile_start),
-        p(pairs.tile_end), p(order), n_tiles, gx, 8, p(out), p(t_fin), p(out),
-        p(t_fin), p(wide), _build.stream_of(wide))
-    assert err == 1
+    with pytest.raises(RuntimeError,
+                       match="raster_forward failed: CUDA error 1$"):
+        _build.launch("raster", "raster_forward", "PiPPPPiiiPPP", wide,
+                      wide.shape[1], pairs.pair_gauss, pairs.tile_start,
+                      pairs.tile_end, order, n_tiles, gx, 8, out, t_fin,
+                      n_eval, like=wide)
+    with pytest.raises(RuntimeError,
+                       match="raster_backward failed: CUDA error 1$"):
+        _build.launch("raster_bwd", "raster_backward", "PiPPPPiiiPPPPP", wide,
+                      wide.shape[1], pairs.pair_gauss, pairs.tile_start,
+                      pairs.tile_end, order, n_tiles, gx, 8, out, t_fin, out,
+                      t_fin, wide, like=wide)
 
 
 @pytest.mark.cuda
@@ -1625,6 +1626,97 @@ def test_verifier_refuses_a_corrupted_tile_row_on_the_card(cuda_device,
                                                backend="auto")
     assert not ok
     assert results["fwd_image"] > verify_compiled.REL_TOL_FWD
+
+
+# ------------------------- the seam every wrapper calls its C entry through
+
+
+@pytest.mark.parametrize("launched", [True, False], ids=["grid", "empty"])
+@pytest.mark.parametrize("err", [0, 700], ids=["success", "error"])
+def test_launch_calls_the_entry_then_counts(monkeypatch, err, launched):
+    """_build.launch passes a tensor as its pointer, a host array as its
+    address and None as a null pointer, appends the stream of ``like``'s
+    device, raises on a nonzero cudaError_t naming the entry and the code,
+    and counts one launch after a call that succeeded and launched."""
+    seen = []
+
+    def function(source, entry, signature):
+        seen.append((source, entry, signature))
+        return lambda *args: seen.append(args) or err
+
+    monkeypatch.setattr(_build, "function", function)
+    monkeypatch.setattr(_build, "stream_of", lambda t: "stream")
+    t, host = torch.zeros(4), np.arange(3, dtype=np.int32)
+    counter = SimpleNamespace(launches=0)
+
+    def call():
+        _build.launch("src", "entry_fn", "PPiP", t, host, 5, None, like=t,
+                      counter=counter, launched=launched)
+
+    if err:
+        with pytest.raises(RuntimeError,
+                           match="^entry_fn failed: CUDA error 700$"):
+            call()
+    else:
+        call()
+    assert seen == [("src", "entry_fn", "PPiPP"),
+                    (t.data_ptr(), host.ctypes.data, 5, None, "stream")]
+    assert counter.launches == (1 if launched and not err else 0)
+
+
+_BASE = torch.zeros((5, 8))
+
+
+@pytest.mark.parametrize("t, checks, message", [
+    (_BASE.double(), {}, r"^f: x must be a contiguous torch.float32 \(5, \*\)"
+     r" tensor on cpu, got \(5, 8\) torch.float64 on cpu$"),
+    (_BASE.T, {"shape": (8, 5)}, r"\(8, 5\) tensor on cpu, got \(8, 5\) "
+     r"torch.float32 non-contiguous on cpu$"),
+    (_BASE[:, :4], {"shape": (5, 3), "contiguous": False},
+     r"^f: x must be a torch.float32 \(5, 3\) tensor on cpu, got \(5, 4\) "
+     r"torch.float32 non-contiguous on cpu$"),
+    (_BASE, {"shape": (5, 4)}, r"\(5, 4\) tensor on cpu, got \(5, 8\) "),
+    (_BASE, {"shape": (5, 8, 1)}, r"\(5, 8, 1\) tensor on cpu, got \(5, 8\) "),
+    (_BASE.view(-1)[1:], {"shape": (39,), "align16": True},
+     r"^f: x must be 16-byte aligned \(the kernel reads it as float4\)$"),
+], ids=["dtype", "strided", "strides-taken", "shape", "rank", "misaligned"])
+def test_require_refuses_what_a_c_entry_cannot_take(t, checks, message):
+    """_build.require refuses a tensor of another dtype, strides, shape or
+    alignment than the C entry takes, and takes the same tensor where the
+    entry does."""
+    _build.require("f", "x", _BASE, like=_BASE, shape=(5, None), align16=True)
+    _build.require("f", "x", _BASE.T, like=_BASE, contiguous=False)
+    with pytest.raises(ValueError, match=message):
+        _build.require("f", "x", t, like=_BASE, **{"shape": (5, None),
+                                                   **checks})
+
+
+def test_every_kernel_source_is_built_and_launched_as_declared(
+        monkeypatch, tmp_path):
+    """build() compiles exactly csrc/*.cu, and the wrappers' launches name
+    an entry of each, with the types of its C parameters (a pointer P, an
+    int i, the stream last)."""
+    stems = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    built = tmp_path / "built.so"
+    built.touch()
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "library_path", lambda name: built)
+    assert sorted(_build.build()) == stems
+
+    declared = {}
+    for stem in stems:
+        src = (_build.CSRC / f"{stem}.cu").read_text()
+        for entry, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                        src):
+            declared[stem, entry] = "".join(
+                "P" if "*" in p else "i" if re.fullmatch(r"\s*int \w+\s*", p)
+                else "?" for p in params.split(","))
+    launches = [m for path in _build.CSRC.parent.rglob("*.py")
+                for m in re.findall(r'_build\.launch\(\s*"(\w+)",\s*"(\w+)",'
+                                    r'\s*"(\w*)"', path.read_text())]
+    assert {source for source, _, _ in launches} == set(stems)
+    for source, entry, signature in launches:
+        assert declared.get((source, entry)) == signature + "P", entry
 
 
 # ------------------------------------------------- the viewer's maps kernel

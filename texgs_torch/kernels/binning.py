@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from texgs_torch import _build
 from texgs_torch.kernels.reference import TILE, tile_rect
 
 
@@ -108,6 +109,14 @@ def with_tile_order(pairs: PairList) -> PairList:
     if pairs.tile_order is not None:
         return pairs
     return pairs._replace(tile_order=heaviest_first(pairs.tile_counts))
+
+
+def require_pairs(name: str, pairs: PairList, like: torch.Tensor) -> None:
+    """Refuses a pair list whose tensors the C entry of a kernel on
+    ``like``'s device cannot take (``_build.require``)."""
+    for arg in ("pair_gauss", "tile_start", "tile_end"):
+        _build.require(name, arg, getattr(pairs, arg), like=like,
+                       dtype=torch.int32)
 
 
 def tile_order_arg(name: str, pairs: PairList,

@@ -18,7 +18,6 @@ CUDA tensors.  Each launch adds one to ``cubemap_maps.launches``.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -182,9 +181,6 @@ def cross_to_faces(cross: torch.Tensor) -> torch.Tensor:
                         for r, c in CROSS_BLOCKS])
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-
-
 @spanned("kernel.cubemap_maps")
 def cubemap_maps(sh0: torch.Tensor, resolution=None) -> torch.Tensor:
     """An rgb map of a (6, R, R, 3) SH0 cubemap, computed anew each call:
@@ -197,30 +193,22 @@ def cubemap_maps(sh0: torch.Tensor, resolution=None) -> torch.Tensor:
         rgb = sh02rgb(sh0)
         return (faces_to_cross(rgb) if resolution is None
                 else cubemap_to_latlong(rgb, resolution))
-    if sh0.device.type != "cuda":
-        raise ValueError(f"cubemap_maps: unsupported device {sh0.device}")
     res = sh0.shape[1] if sh0.dim() == 4 else 0
-    if (sh0.shape != (6, res, res, 3) or res < 1 or sh0.dtype != torch.float32
-            or not sh0.is_contiguous()):
-        raise ValueError("cubemap_maps: the texture must be a contiguous "
-                         f"float32 (6, R, R, 3) tensor, got {tuple(sh0.shape)}"
-                         f" {sh0.dtype}")
-    p, stream = _build.ptr, _build.stream_of(sh0)
+    _build.require("cubemap_maps", "sh0", sh0, like=sh0,
+                   shape=(6, res, res, 3))
+    if res < 1:
+        raise ValueError("cubemap_maps: an empty texture")
     if resolution is None:
         out = sh0.new_empty((3 * res, 4 * res, 3))
-        err = _build.function("cubemap_maps", "cubemap_cross",
-                              [_P, _I, _P, _P])(p(sh0), res, p(out), stream)
+        _build.launch("cubemap_maps", "cubemap_cross", "PiP", sh0, res, out,
+                      like=sh0, counter=cubemap_maps)
     else:
         h, w = int(resolution[0]), int(resolution[1])
         if h < 1 or w < 1:
             raise ValueError(f"cubemap_maps: bad panorama size {resolution}")
         out = sh0.new_empty((h, w, 3))
-        err = _build.function("cubemap_maps", "cubemap_latlong",
-                              [_P, _I, _I, _I, _P, _P])(
-            p(sh0), res, h, w, p(out), stream)
-    if err:
-        raise RuntimeError(f"cubemap_maps failed: CUDA error {err}")
-    cubemap_maps.launches += 1
+        _build.launch("cubemap_maps", "cubemap_latlong", "PiiiP", sh0, res, h,
+                      w, out, like=sh0, counter=cubemap_maps)
     return out
 
 

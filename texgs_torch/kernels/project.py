@@ -257,42 +257,23 @@ def camera_arg(world_view, full_proj, campos, width: int, height: int,
 
 def _check_inputs(name: str, xyz, scaling, rotation, opacity, cov3d_precomp,
                   ndc_offset=None) -> tuple:
-    """Validates kernel P's (or P''s) inputs on a CUDA device; returns (n,
-    the covariance's source)."""
-    if xyz.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {xyz.device}")
-    n = xyz.shape[0] if xyz.dim() == 2 else -1
-    shapes = {"xyz": (n, 3), "scaling": (n, 3), "rotation": (n, 4),
-              "opacity": ((n,), (n, 1)), "cov3d_precomp": ((n, 6), (n, 3, 3)),
-              "ndc_offset": (n, 2)}
-    for arg, t in (("xyz", xyz), ("scaling", scaling), ("rotation", rotation),
-                   ("opacity", opacity), ("cov3d_precomp", cov3d_precomp),
-                   ("ndc_offset", ndc_offset)):
-        if t is None and arg in ("cov3d_precomp", "ndc_offset"):
-            continue
-        want = shapes[arg]
-        ok = tuple(t.shape) in (want if isinstance(want[0], tuple) else (want,))
-        if (not ok or t.device != xyz.device or t.dtype != torch.float32
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: {arg} must be a contiguous float32 "
-                             f"{want} tensor on {xyz.device}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    """Refuses kernel P's (or P''s) inputs where its C entry cannot take
+    them; returns (n, the covariance's source)."""
+    _build.require(name, "xyz", xyz, like=xyz, shape=(None, 3))
+    n = xyz.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"{name}: {n} Gaussians, the kernel indexes int32")
     src = (_COV_BUILT if cov3d_precomp is None else
            _COV_PACKED if cov3d_precomp.dim() == 2 else _COV_FULL)
+    for arg, t, shape in (
+            ("scaling", scaling, (n, 3)), ("rotation", rotation, (n, 4)),
+            ("opacity", opacity, (n,) if opacity.dim() == 1 else (n, 1)),
+            ("cov3d_precomp", cov3d_precomp,
+             (n, 6) if src == _COV_PACKED else (n, 3, 3)),
+            ("ndc_offset", ndc_offset, (n, 2))):
+        if t is not None:
+            _build.require(name, arg, t, like=xyz, shape=shape)
     return n, src
-
-
-def _ptr(t):
-    return None if t is None else _build.ptr(t)
-
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_CAM = ctypes.POINTER(_Camera)
-_FWD_ARGS = [_CAM, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P]
-_BWD_ARGS = [_CAM, _I, _P, _P, _P, _P, _P, _I, ctypes.POINTER(_Cotangents),
-             ctypes.POINTER(_Gradients), _P]
 
 
 @spanned("kernel.project")
@@ -311,15 +292,11 @@ def project_gaussians_forward(cam: _Camera, xyz, scaling, rotation, opacity,
     radii = torch.empty((n,), dtype=torch.int32, device=dev)
     opacities = torch.empty((n,), device=dev)
     normals = torch.empty((n, 3), device=dev)
-    p = _build.ptr
-    err = _build.function("project", "project_forward", _FWD_ARGS)(
-        ctypes.byref(cam), n, p(xyz), p(scaling), p(rotation), p(opacity),
-        _ptr(cov3d_precomp), src, _ptr(ndc_offset), p(means2d), p(depths),
-        p(conics), p(radii), p(opacities), p(normals), _build.stream_of(xyz))
-    if err:
-        raise RuntimeError(f"project_forward failed: CUDA error {err}")
-    if n > 0:
-        project_gaussians.launches += 1
+    _build.launch("project", "project_forward", "PiPPPPPiPPPPPPP",
+                  ctypes.byref(cam), n, xyz, scaling, rotation, opacity,
+                  cov3d_precomp, src, ndc_offset, means2d, depths, conics,
+                  radii, opacities, normals, like=xyz,
+                  counter=project_gaussians, launched=n > 0)
     return means2d, depths, conics, radii, opacities, normals
 
 
@@ -338,21 +315,19 @@ def project_gaussians_backward(cam: _Camera, xyz, scaling, rotation, opacity,
     (xyz, scaling, rotation, opacity, cov3d_precomp, ndc_offset) wants a
     gradient.  Returns their gradients, None where not wanted, and for
     scaling where a given covariance leaves it without one."""
-    n, src = _check_inputs("project_gaussians_backward", xyz, scaling,
-                           rotation, opacity, cov3d_precomp)
+    name = "project_gaussians_backward"
+    n, src = _check_inputs(name, xyz, scaling, rotation, opacity,
+                           cov3d_precomp)
     g = _Cotangents()
-    for (name, width), t in zip(_COTANGENT_SHAPES, cotangents):
+    for (arg, width), t in zip(_COTANGENT_SHAPES, cotangents):
         if t is None:
             continue
-        shape = (n, width) if width > 1 else (n,)
-        if (tuple(t.shape) != shape or t.device != xyz.device
-                or t.dtype != torch.float32):
-            raise ValueError(f"project_gaussians_backward: the cotangent of "
-                             f"{name} must be a float32 {shape} tensor on "
-                             f"{xyz.device}")
-        setattr(g, name, t.data_ptr())
+        _build.require(name, f"the cotangent of {arg}", t, like=xyz,
+                       shape=(n, width) if width > 1 else (n,),
+                       contiguous=False)
+        setattr(g, arg, t.data_ptr())
         for d, stride in enumerate(t.stride()):
-            setattr(g, f"{name}_s{d}", stride)
+            setattr(g, f"{arg}_s{d}", stride)
     like = (xyz, scaling if src == _COV_BUILT else None, rotation, opacity,
             cov3d_precomp)
     grads = [torch.empty_like(t) if want and t is not None else None
@@ -362,15 +337,11 @@ def project_gaussians_backward(cam: _Camera, xyz, scaling, rotation, opacity,
     d = _Gradients(*(t.data_ptr() if t is not None else None for t in
                      (grads[0], grads[1], grads[2], grads[3], grads[5],
                       grads[4])))
-    p = _build.ptr
-    err = _build.function("project_bwd", "project_backward", _BWD_ARGS)(
-        ctypes.byref(cam), n, p(xyz), p(scaling), p(rotation), p(opacity),
-        _ptr(cov3d_precomp), src, ctypes.byref(g), ctypes.byref(d),
-        _build.stream_of(xyz))
-    if err:
-        raise RuntimeError(f"project_backward failed: CUDA error {err}")
-    if n > 0:
-        project_gaussians_backward.launches += 1
+    _build.launch("project_bwd", "project_backward", "PiPPPPPiPP",
+                  ctypes.byref(cam), n, xyz, scaling, rotation, opacity,
+                  cov3d_precomp, src, ctypes.byref(g), ctypes.byref(d),
+                  like=xyz, counter=project_gaussians_backward,
+                  launched=n > 0)
     return tuple(grads)
 
 

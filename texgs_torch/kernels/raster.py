@@ -19,12 +19,11 @@ Each launch adds one to ``raster_pairs.launches`` or
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from texgs_torch import _build
-from texgs_torch.kernels.binning import PairList, tile_order_arg
+from texgs_torch.kernels.binning import (PairList, require_pairs,
+                                         tile_order_arg)
 from texgs_torch.kernels.reference import TILE
 from texgs_torch.kernels.tile_raster import (COL_ANCHOR, N_FIXED_F, NEG_INF,
                                              PIX, ROW_LOGOP, TABLE_FIXED,
@@ -111,27 +110,15 @@ def raster_scan_vjp(table: torch.Tensor, pairs: PairList, gx: int,
     return d_table
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]
-_BWD_ARGS = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P]
-
-
 def _check_args(name: str, table, pairs: PairList) -> int:
-    """Validates kernel 1's (or 1''s) common arguments on a CUDA device;
-    returns the blend channel count F."""
-    if table.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {table.device}")
+    """Refuses kernel 1's (or 1''s) common arguments where its C entry
+    cannot take them; returns the blend channel count F."""
+    _build.require(name, "table", table, like=table, shape=(None, None))
     n_f = table.shape[1] - TABLE_FIXED + N_FIXED_F
     if n_f not in KERNEL_F:
         raise ValueError(f"{name}: {n_f} blend channels, the kernel takes "
                          f"{' or '.join(map(str, KERNEL_F))}")
-    for arg, t, dtype in (("table", table, torch.float32),
-                          ("pair_gauss", pairs.pair_gauss, torch.int32),
-                          ("tile_start", pairs.tile_start, torch.int32),
-                          ("tile_end", pairs.tile_end, torch.int32)):
-        if t.device != table.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be a contiguous "
-                             f"{dtype} tensor on {table.device}")
+    require_pairs(name, pairs, table)
     return n_f
 
 
@@ -154,15 +141,12 @@ def raster_pairs_forward(table: torch.Tensor, pairs: PairList, gx: int):
     blend = torch.empty((n_tiles, PIX, n_f), device=dev)
     t_final = torch.empty((n_tiles, PIX), device=dev)
     n_eval = torch.empty((n_tiles, PIX), dtype=torch.int32, device=dev)
-    p = _build.ptr
-    err = _build.function("raster", "raster_forward", _FWD_ARGS)(
-        p(table), table.shape[1], p(pairs.pair_gauss), p(pairs.tile_start),
-        p(pairs.tile_end), p(order), n_tiles, gx, n_f, p(blend), p(t_final),
-        p(n_eval), _build.stream_of(table))
-    if err:
-        raise RuntimeError(f"raster_forward failed: CUDA error {err}")
-    if n_tiles > 0:  # the C entry launches nothing for an empty grid
-        raster_pairs.launches += 1
+    # the C entry launches nothing for an empty grid
+    _build.launch("raster", "raster_forward", "PiPPPPiiiPPP", table,
+                  table.shape[1], pairs.pair_gauss, pairs.tile_start,
+                  pairs.tile_end, order, n_tiles, gx, n_f, blend, t_final,
+                  n_eval, like=table, counter=raster_pairs,
+                  launched=n_tiles > 0)
     return blend, t_final, n_eval
 
 
@@ -176,27 +160,20 @@ def raster_pairs_backward(table: torch.Tensor, pairs: PairList, gx: int,
     launch csrc/raster_bwd.cu."""
     if table.device.type == "cpu":
         return raster_scan_vjp(table, pairs, gx, g_blend, g_t_final)
-    n_f = _check_args("raster_pairs_backward", table, pairs)
+    name = "raster_pairs_backward"
+    n_f = _check_args(name, table, pairs)
     n_tiles = pairs.tile_counts.shape[0]
-    shapes = {"blend": (n_tiles, PIX, n_f), "t_final": (n_tiles, PIX)}
-    for name, t, g in (("blend", blend, g_blend), ("t_final", t_final, g_t_final)):
-        for arg in (t, g):
-            if (tuple(arg.shape) != shapes[name] or arg.device != table.device
-                    or arg.dtype != torch.float32 or not arg.is_contiguous()):
-                raise ValueError(f"raster_pairs_backward: {name} and its "
-                                 f"cotangent must be contiguous float32 "
-                                 f"{shapes[name]} tensors on {table.device}")
-    order = tile_order_arg("raster_pairs_backward", pairs, table.device)
+    for arg, t in (("blend", blend), ("g_blend", g_blend)):
+        _build.require(name, arg, t, like=table, shape=(n_tiles, PIX, n_f))
+    for arg, t in (("t_final", t_final), ("g_t_final", g_t_final)):
+        _build.require(name, arg, t, like=table, shape=(n_tiles, PIX))
+    order = tile_order_arg(name, pairs, table.device)
     d_table = torch.zeros_like(table)
-    p = _build.ptr
-    err = _build.function("raster_bwd", "raster_backward", _BWD_ARGS)(
-        p(table), table.shape[1], p(pairs.pair_gauss), p(pairs.tile_start),
-        p(pairs.tile_end), p(order), n_tiles, gx, n_f, p(blend), p(t_final),
-        p(g_blend), p(g_t_final), p(d_table), _build.stream_of(table))
-    if err:
-        raise RuntimeError(f"raster_backward failed: CUDA error {err}")
-    if n_tiles > 0:
-        raster_pairs_backward.launches += 1
+    _build.launch("raster_bwd", "raster_backward", "PiPPPPiiiPPPPP", table,
+                  table.shape[1], pairs.pair_gauss, pairs.tile_start,
+                  pairs.tile_end, order, n_tiles, gx, n_f, blend, t_final,
+                  g_blend, g_t_final, d_table, like=table,
+                  counter=raster_pairs_backward, launched=n_tiles > 0)
     return d_table
 
 

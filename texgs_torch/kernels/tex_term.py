@@ -23,14 +23,12 @@ zero direction; kernel A' never reads it (tests/test_textile.py:78-86).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from texgs_torch import _build
 from texgs_torch.kernels.binning import grid_shape
 from texgs_torch.kernels.cubemap import sample_cubemap
-from texgs_torch.kernels.tile_raster import tiles_to_image
+from texgs_torch.kernels.tile_raster import PIX, tiles_to_image
 from texgs_torch.utils.sh import C0
 from texgs_torch.utils.spans import spanned
 
@@ -66,32 +64,17 @@ def mlist_tex_term_vjp(mlist: torch.Tensor, texture: torch.Tensor,
         return torch.autograd.grad(out, (ml, tex), g_img)
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def _check_args(name: str, mlist, texture, height: int, width: int,
-                filter_mode: str) -> int:
-    """Validates kernel B's (or B''s) arguments on a CUDA device; returns
-    the grid width in tiles."""
-    if mlist.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {mlist.device}")
+def _check_args(name: str, mlist, texture, height: int, width: int) -> int:
+    """Refuses kernel B's (or B''s) arguments where its C entry cannot take
+    them; returns the grid width in tiles."""
     gy, gx = grid_shape(height, width)
-    n_tiles, pix, m, four = mlist.shape
-    if (n_tiles, pix, four) != (gy * gx, 256, 4) or m < 1:
-        raise ValueError(f"{name}: M-lists must be ({gy * gx}, 256, m, 4), "
-                         f"got {tuple(mlist.shape)}")
-    res = texture.shape[1]
-    if texture.shape != (6, res, res, 3):
-        raise ValueError(f"{name}: texture must be (6, R, R, 3), got "
-                         f"{tuple(texture.shape)}")
-    for arg, t in (("mlist", mlist), ("texture", texture)):
-        if (t.device != mlist.device or t.dtype != torch.float32
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: {arg} must be a contiguous float32 "
-                             f"tensor on {mlist.device}")
-    if mlist.data_ptr() % 16:
-        raise ValueError(f"{name}: the M-lists must be 16-byte aligned "
-                         "(the kernel reads each slot as one float4)")
+    _build.require(name, "mlist", mlist, like=mlist,
+                   shape=(gy * gx, PIX, None, 4), align16=True)
+    if mlist.shape[2] < 1:
+        raise ValueError(f"{name}: the M-lists must hold m >= 1 slots")
+    res = texture.shape[1] if texture.dim() == 4 else 0
+    _build.require(name, "texture", texture, like=mlist,
+                   shape=(6, res, res, 3))
     return gx
 
 
@@ -105,18 +88,14 @@ def tex_term_forward(mlist: torch.Tensor, texture: torch.Tensor, height: int,
         raise ValueError(f"unknown filter_mode {filter_mode!r}")
     if mlist.device.type == "cpu":
         return mlist_tex_term(mlist, texture, height, width, filter_mode)
-    gx = _check_args("tex_term", mlist, texture, height, width, filter_mode)
+    gx = _check_args("tex_term", mlist, texture, height, width)
     n_tiles, _, m, _ = mlist.shape
     out = torch.empty((3, height, width), device=mlist.device)
-    p = _build.ptr
-    err = _build.function("tex_term", "tex_term_forward",
-                          [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P])(
-        p(mlist), p(texture), texture.shape[1], FILTER_MODES[filter_mode],
-        n_tiles, m, gx, height, width, p(out), _build.stream_of(mlist))
-    if err:
-        raise RuntimeError(f"tex_term_forward failed: CUDA error {err}")
-    if n_tiles > 0:  # the C entry launches nothing for an empty grid
-        tex_term.launches += 1
+    # the C entry launches nothing for an empty grid
+    _build.launch("tex_term", "tex_term_forward", "PPiiiiiiiP", mlist,
+                  texture, texture.shape[1], FILTER_MODES[filter_mode],
+                  n_tiles, m, gx, height, width, out, like=mlist,
+                  counter=tex_term, launched=n_tiles > 0)
     return out
 
 
@@ -129,37 +108,26 @@ def tex_term_backward(mlist: torch.Tensor, texture: torch.Tensor,
     (``mlist_tex_term_vjp``); CUDA tensors launch csrc/tex_term_bwd.cu,
     which adds the texture gradient into texels padded to 16 bytes (one
     vector atomic a texel) and packs them to (6, R, R, 3) in a second
-    kernel."""
+    kernel.  The two launches count as one."""
     if filter_mode not in FILTER_MODES:
         raise ValueError(f"unknown filter_mode {filter_mode!r}")
     if mlist.device.type == "cpu":
         return mlist_tex_term_vjp(mlist, texture, g_img, height, width,
                                   filter_mode)
-    gx = _check_args("tex_term_backward", mlist, texture, height, width,
-                     filter_mode)
-    if (g_img.shape != (3, height, width) or g_img.device != mlist.device
-            or g_img.dtype != torch.float32 or not g_img.is_contiguous()):
-        raise ValueError(f"tex_term_backward: g_img must be a contiguous "
-                         f"float32 (3, {height}, {width}) tensor on "
-                         f"{mlist.device}")
+    name = "tex_term_backward"
+    gx = _check_args(name, mlist, texture, height, width)
+    _build.require(name, "g_img", g_img, like=mlist, shape=(3, height, width))
     n_tiles, _, m, _ = mlist.shape
     d_mlist = torch.empty_like(mlist)
     d_texture4 = torch.zeros((*texture.shape[:3], 4), device=mlist.device)
     d_texture = torch.empty_like(texture)
-    p, stream = _build.ptr, _build.stream_of(mlist)
-    err = _build.function("tex_term_bwd", "tex_term_backward",
-                          [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P])(
-        p(mlist), p(texture), texture.shape[1], FILTER_MODES[filter_mode],
-        n_tiles, m, gx, height, width, p(g_img), p(d_mlist), p(d_texture4),
-        stream)
-    if not err:
-        err = _build.function("tex_term_bwd", "tex_term_pack",
-                              [_P, _I, _P, _P])(
-            p(d_texture4), d_texture4.numel() // 4, p(d_texture), stream)
-    if err:
-        raise RuntimeError(f"tex_term_backward failed: CUDA error {err}")
-    if n_tiles > 0:
-        tex_term_backward.launches += 1
+    _build.launch("tex_term_bwd", "tex_term_backward", "PPiiiiiiiPPP", mlist,
+                  texture, texture.shape[1], FILTER_MODES[filter_mode],
+                  n_tiles, m, gx, height, width, g_img, d_mlist, d_texture4,
+                  like=mlist)
+    _build.launch("tex_term_bwd", "tex_term_pack", "PiP", d_texture4,
+                  d_texture4.numel() // 4, d_texture, like=mlist,
+                  counter=tex_term_backward, launched=n_tiles > 0)
     return d_mlist, d_texture
 
 

@@ -20,13 +20,12 @@ raise.  Each launch adds one to ``fused_pairs.launches`` or
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from texgs_torch import _build
-from texgs_torch.kernels.binning import PairList, tile_order_arg
+from texgs_torch.kernels.binning import (PairList, require_pairs,
+                                         tile_order_arg)
 from texgs_torch.kernels.reference import TILE
 from texgs_torch.kernels.tile_raster import (COL_ANCHOR, N_FIXED_F, NEG_INF,
                                              PIX, ROW_LOGOP, TABLE_FIXED,
@@ -151,40 +150,23 @@ def mlist_scan_vjp(table: torch.Tensor, uv_rows: torch.Tensor,
     return d_table, d_uv
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_RAYS = ctypes.POINTER(ctypes.c_float)
-_FWD_ARGS = [_P, _I, _P, _P, _P, _P, _P, _RAYS, _I, _I, _I, _I,
-             _P, _P, _P, _P, _P]
-_BWD_ARGS = [_P, _I, _P, _P, _P, _P, _RAYS, _I, _I, _I, _I,
-             _P, _P, _P, _P, _P, _P, _P, _P, _P]
-
-
 def check_pair_args(name: str, table, uv_rows, pairs: PairList, m: int):
-    """Validates the arguments kernels A, A', 2 and 2' share, on a CUDA
-    device."""
-    if table.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {table.device}")
-    if table.dim() != 2 or table.shape[1] < TABLE_FIXED:
+    """Refuses the arguments kernels A, A', 2 and 2' share where their C
+    entries cannot take them."""
+    _build.require(name, "table", table, like=table, shape=(None, None))
+    if table.shape[1] < TABLE_FIXED:
         raise ValueError(f"{name}: table must be (N, >= {TABLE_FIXED}), got "
                          f"{tuple(table.shape)}")
     if m < 1:
         raise ValueError(f"{name}: m must be >= 1, got {m}")
-    for arg, t, dtype in (("table", table, torch.float32),
-                          ("uv_rows", uv_rows, torch.float32),
-                          ("pair_gauss", pairs.pair_gauss, torch.int32),
-                          ("tile_start", pairs.tile_start, torch.int32),
-                          ("tile_end", pairs.tile_end, torch.int32)):
-        if t.device != table.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be a contiguous "
-                             f"{dtype} tensor on {table.device}")
-    if uv_rows.shape != (table.shape[0], UV_COLS):
-        raise ValueError(f"{name}: uv_rows must be ({table.shape[0]}, "
-                         f"{UV_COLS}), got {tuple(uv_rows.shape)}")
+    _build.require(name, "uv_rows", uv_rows, like=table,
+                   shape=(table.shape[0], UV_COLS))
+    require_pairs(name, pairs, table)
 
 
 def _check_args(name: str, table, uv_rows, pairs: PairList, m: int) -> int:
-    """Validates kernel A's (or A''s) common arguments on a CUDA device;
-    returns the blend channel count F."""
+    """Refuses kernel A's (or A''s) common arguments where its C entry
+    cannot take them; returns the blend channel count F."""
     check_pair_args(name, table, uv_rows, pairs, m)
     n_f = table.shape[1] - TABLE_FIXED + N_FIXED_F
     if n_f not in KERNEL_F:
@@ -193,17 +175,9 @@ def _check_args(name: str, table, uv_rows, pairs: PairList, m: int) -> int:
     return n_f
 
 
-def rays9(rays: np.ndarray):
+def rays9(rays: np.ndarray) -> np.ndarray:
     """The (3, 3) ray constants as the C entries take them: 9 host floats."""
-    return (ctypes.c_float * 9)(*np.asarray(rays, np.float32).reshape(-1))
-
-
-def check_float4(name: str, *tensors):
-    """The kernels read each M-list slot as one float4."""
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: the M-lists and their cotangent must be "
-                         "16-byte aligned (the kernel reads each slot as one "
-                         "float4)")
+    return np.ascontiguousarray(rays, dtype=np.float32)
 
 
 @spanned("kernel.uvtex_fused")
@@ -225,16 +199,12 @@ def fused_pairs_forward(table: torch.Tensor, uv_rows: torch.Tensor,
     t_final = torch.empty((n_tiles, PIX), device=dev)
     mlist = torch.empty((n_tiles, PIX, m, 4), device=dev)
     n_eval = torch.empty((n_tiles, PIX), dtype=torch.int32, device=dev)
-    p = _build.ptr
-    err = _build.function("uvtex_fused", "uvtex_fused_forward", _FWD_ARGS)(
-        p(table), table.shape[1], p(uv_rows), p(pairs.pair_gauss),
-        p(pairs.tile_start), p(pairs.tile_end), p(order), rays9(rays),
-        n_tiles, gx, n_f, m, p(blend), p(t_final), p(mlist), p(n_eval),
-        _build.stream_of(table))
-    if err:
-        raise RuntimeError(f"uvtex_fused_forward failed: CUDA error {err}")
-    if n_tiles > 0:  # the C entry launches nothing for an empty grid
-        fused_pairs.launches += 1
+    # the C entry launches nothing for an empty grid
+    _build.launch("uvtex_fused", "uvtex_fused_forward", "PiPPPPPPiiiiPPPP",
+                  table, table.shape[1], uv_rows, pairs.pair_gauss,
+                  pairs.tile_start, pairs.tile_end, order, rays9(rays),
+                  n_tiles, gx, n_f, m, blend, t_final, mlist, n_eval,
+                  like=table, counter=fused_pairs, launched=n_tiles > 0)
     return blend, t_final, mlist, n_eval
 
 
@@ -251,32 +221,24 @@ def fused_pairs_backward(table: torch.Tensor, uv_rows: torch.Tensor,
     if table.device.type == "cpu":
         return mlist_scan_vjp(table, uv_rows, pairs, rays, gx, m, g_blend,
                               g_t_final, g_mlist)
-    n_f = _check_args("fused_pairs_backward", table, uv_rows, pairs, m)
+    name = "fused_pairs_backward"
+    n_f = _check_args(name, table, uv_rows, pairs, m)
     n_tiles = pairs.tile_counts.shape[0]
-    shapes = {"blend": (n_tiles, PIX, n_f), "t_final": (n_tiles, PIX),
-              "mlist": (n_tiles, PIX, m, 4)}
-    for name, t, g in (("blend", blend, g_blend), ("t_final", t_final, g_t_final),
-                       ("mlist", mlist, g_mlist)):
-        for arg in (t, g):
-            if (tuple(arg.shape) != shapes[name] or arg.device != table.device
-                    or arg.dtype != torch.float32 or not arg.is_contiguous()):
-                raise ValueError(f"fused_pairs_backward: {name} and its "
-                                 f"cotangent must be contiguous float32 "
-                                 f"{shapes[name]} tensors on {table.device}")
-    check_float4("fused_pairs_backward", mlist, g_mlist)
+    for arg, t in (("blend", blend), ("g_blend", g_blend)):
+        _build.require(name, arg, t, like=table, shape=(n_tiles, PIX, n_f))
+    for arg, t in (("t_final", t_final), ("g_t_final", g_t_final)):
+        _build.require(name, arg, t, like=table, shape=(n_tiles, PIX))
+    for arg, t in (("mlist", mlist), ("g_mlist", g_mlist)):
+        _build.require(name, arg, t, like=table, shape=(n_tiles, PIX, m, 4),
+                       align16=True)
     d_table = torch.zeros_like(table)
     d_uv = torch.zeros_like(uv_rows)
-    p = _build.ptr
-    err = _build.function("uvtex_fused_bwd", "uvtex_fused_backward",
-                          _BWD_ARGS)(
-        p(table), table.shape[1], p(uv_rows), p(pairs.pair_gauss),
-        p(pairs.tile_start), p(pairs.tile_end), rays9(rays), n_tiles, gx,
-        n_f, m, p(blend), p(t_final), p(mlist), p(g_blend), p(g_t_final),
-        p(g_mlist), p(d_table), p(d_uv), _build.stream_of(table))
-    if err:
-        raise RuntimeError(f"uvtex_fused_backward failed: CUDA error {err}")
-    if n_tiles > 0:
-        fused_pairs_backward.launches += 1
+    _build.launch("uvtex_fused_bwd", "uvtex_fused_backward",
+                  "PiPPPPPiiiiPPPPPPPP", table, table.shape[1], uv_rows,
+                  pairs.pair_gauss, pairs.tile_start, pairs.tile_end,
+                  rays9(rays), n_tiles, gx, n_f, m, blend, t_final, mlist,
+                  g_blend, g_t_final, g_mlist, d_table, d_uv, like=table,
+                  counter=fused_pairs_backward, launched=n_tiles > 0)
     return d_table, d_uv
 
 

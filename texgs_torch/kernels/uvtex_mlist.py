@@ -23,8 +23,6 @@ kernel or raise.  Each launch adds one to ``mlist_pairs.launches`` or
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -32,9 +30,8 @@ from texgs_torch import _build
 from texgs_torch.kernels.binning import PairList, tile_order_arg
 from texgs_torch.kernels.tile_raster import (COL_ANCHOR, N_FIXED_F, PIX,
                                              ROW_F0, TABLE_FIXED)
-from texgs_torch.kernels.uvtex_fused import (check_float4, check_pair_args,
-                                             mlist_scan, mlist_scan_vjp,
-                                             rays9)
+from texgs_torch.kernels.uvtex_fused import (check_pair_args, mlist_scan,
+                                             mlist_scan_vjp, rays9)
 from texgs_torch.utils.spans import spanned
 
 
@@ -68,13 +65,6 @@ def mlist_only_scan_vjp(table: torch.Tensor, uv_rows: torch.Tensor,
                           m, zeros, zeros[..., 0], g_mlist)
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_RAYS = ctypes.POINTER(ctypes.c_float)
-_FWD_ARGS = [_P, _I, _P, _P, _P, _P, _P, _RAYS, _I, _I, _I, _P, _P]
-_BWD_ARGS = [_P, _I, _P, _P, _P, _P, _P, _RAYS, _I, _I, _I, _P, _P, _P, _P,
-             _P]
-
-
 @spanned("kernel.uvtex_mlist")
 def mlist_pairs_forward(table: torch.Tensor, uv_rows: torch.Tensor,
                         pairs: PairList, rays: np.ndarray, gx: int, m: int):
@@ -89,15 +79,11 @@ def mlist_pairs_forward(table: torch.Tensor, uv_rows: torch.Tensor,
     n_tiles = pairs.tile_counts.shape[0]
     order = tile_order_arg("mlist_pairs", pairs, table.device)
     mlist = torch.empty((n_tiles, PIX, m, 4), device=table.device)
-    p = _build.ptr
-    err = _build.function("uvtex_mlist", "uvtex_mlist_forward", _FWD_ARGS)(
-        p(table), table.shape[1], p(uv_rows), p(pairs.pair_gauss),
-        p(pairs.tile_start), p(pairs.tile_end), p(order), rays9(rays),
-        n_tiles, gx, m, p(mlist), _build.stream_of(table))
-    if err:
-        raise RuntimeError(f"uvtex_mlist_forward failed: CUDA error {err}")
-    if n_tiles > 0:  # the C entry launches nothing for an empty grid
-        mlist_pairs.launches += 1
+    # the C entry launches nothing for an empty grid
+    _build.launch("uvtex_mlist", "uvtex_mlist_forward", "PiPPPPPPiiiP", table,
+                  table.shape[1], uv_rows, pairs.pair_gauss, pairs.tile_start,
+                  pairs.tile_end, order, rays9(rays), n_tiles, gx, m, mlist,
+                  like=table, counter=mlist_pairs, launched=n_tiles > 0)
     return mlist
 
 
@@ -112,30 +98,20 @@ def mlist_pairs_backward(table: torch.Tensor, uv_rows: torch.Tensor,
     if table.device.type == "cpu":
         return mlist_only_scan_vjp(table, uv_rows, pairs, rays, gx, m,
                                    g_mlist)
-    check_pair_args("mlist_pairs_backward", table, uv_rows, pairs, m)
+    name = "mlist_pairs_backward"
+    check_pair_args(name, table, uv_rows, pairs, m)
     n_tiles = pairs.tile_counts.shape[0]
-    shape = (n_tiles, PIX, m, 4)
-    for arg in (mlist, g_mlist):
-        if (tuple(arg.shape) != shape or arg.device != table.device
-                or arg.dtype != torch.float32 or not arg.is_contiguous()):
-            raise ValueError("mlist_pairs_backward: the M-lists and their "
-                             f"cotangent must be contiguous float32 {shape} "
-                             f"tensors on {table.device}")
-    check_float4("mlist_pairs_backward", mlist, g_mlist)
-    order = tile_order_arg("mlist_pairs_backward", pairs, table.device)
+    for arg, t in (("mlist", mlist), ("g_mlist", g_mlist)):
+        _build.require(name, arg, t, like=table, shape=(n_tiles, PIX, m, 4),
+                       align16=True)
+    order = tile_order_arg(name, pairs, table.device)
     d_table = torch.zeros_like(table)
     d_uv = torch.zeros_like(uv_rows)
-    p = _build.ptr
-    err = _build.function("uvtex_mlist_bwd", "uvtex_mlist_backward",
-                          _BWD_ARGS)(
-        p(table), table.shape[1], p(uv_rows), p(pairs.pair_gauss),
-        p(pairs.tile_start), p(pairs.tile_end), p(order), rays9(rays),
-        n_tiles, gx, m, p(mlist), p(g_mlist), p(d_table), p(d_uv),
-        _build.stream_of(table))
-    if err:
-        raise RuntimeError(f"uvtex_mlist_backward failed: CUDA error {err}")
-    if n_tiles > 0:
-        mlist_pairs_backward.launches += 1
+    _build.launch("uvtex_mlist_bwd", "uvtex_mlist_backward", "PiPPPPPPiiiPPPP",
+                  table, table.shape[1], uv_rows, pairs.pair_gauss,
+                  pairs.tile_start, pairs.tile_end, order, rays9(rays),
+                  n_tiles, gx, m, mlist, g_mlist, d_table, d_uv, like=table,
+                  counter=mlist_pairs_backward, launched=n_tiles > 0)
     return d_table, d_uv
 
 

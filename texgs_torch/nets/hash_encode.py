@@ -23,9 +23,9 @@ each backward launch one to ``hash_encode_backward.launches``.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
+import numpy as np
 import torch
 
 from texgs_torch import _build
@@ -141,12 +141,11 @@ def encode_backward_plain(table: torch.Tensor, x: torch.Tensor,
 
 
 def _check_args(name: str, table, x, g=None):
-    """Validates the arguments of the encode kernels on a CUDA device."""
-    if table.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {table.device}")
-    if table.dim() != 3 or x.dim() != 2 or x.shape[1] != 3:
-        raise ValueError(f"{name}: table must be (L, T, F) and x (N, 3), got "
-                         f"{tuple(table.shape)} and {tuple(x.shape)}")
+    """Refuses the arguments of the encode kernels where their C entries
+    cannot take them."""
+    _build.require(name, "table", table, like=table, shape=(None, None, None),
+                   align16=True)
+    _build.require(name, "x", x, like=table, shape=(None, 3))
     n_levels, table_size, n_feat = table.shape
     if not (1 <= n_levels <= MAX_LEVELS and 1 <= n_feat <= MAX_FEATURES
             and 1 <= table_size < 2 ** 31
@@ -154,31 +153,16 @@ def _check_args(name: str, table, x, g=None):
         raise ValueError(f"{name}: the kernels take 1..{MAX_LEVELS} levels "
                          f"of 1..{MAX_FEATURES} features, got "
                          f"{tuple(table.shape)}")
-    tensors = [("table", table), ("x", x)] + ([("g", g)] if g is not None
-                                             else [])
-    for arg, t in tensors:
-        if t.device != table.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be a contiguous float32 "
-                             f"tensor on {table.device}")
-    if g is not None and tuple(g.shape) != (x.shape[0], n_levels * n_feat):
-        raise ValueError(f"{name}: g must be ({x.shape[0]}, "
-                         f"{n_levels * n_feat}), got {tuple(g.shape)}")
-    if table.data_ptr() % 16:
-        raise ValueError(f"{name}: the table must be 16-byte aligned (the "
-                         "kernels read a row of 4 features as one float4)")
+    if g is not None:
+        _build.require(name, "g", g, like=table,
+                       shape=(x.shape[0], n_levels * n_feat))
 
 
-def _resolutions(n_levels: int):
+def _resolutions(n_levels: int) -> np.ndarray:
     """Each level's grid resolution as the C entries take them: host ints,
     computed here in Python floats (never with the device's powf)."""
-    return (ctypes.c_int * n_levels)(*(level_resolution(lv)
-                                       for lv in range(n_levels)))
-
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
-_BWD_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+    return np.array([level_resolution(lv) for lv in range(n_levels)],
+                    dtype=np.int32)
 
 
 @spanned("kernel.hash_encode")
@@ -203,15 +187,11 @@ def hash_encode_forward(table: torch.Tensor, x: torch.Tensor,
         idx = torch.empty((n_levels * CORNERS, n), dtype=torch.int32,
                           device=table.device)
         w = torch.empty((n_levels * CORNERS, n), device=table.device)
-    p = _build.ptr
-    err = _build.function("hash_encode", "hash_encode_forward", _FWD_ARGS)(
-        p(table), p(x), _resolutions(n_levels), n_levels, table_size, n_feat,
-        n, p(out), p(idx) if corners else None, p(w) if corners else None,
-        _build.stream_of(table))
-    if err:
-        raise RuntimeError(f"hash_encode_forward failed: CUDA error {err}")
-    if n > 0:  # the C entry launches nothing for an empty query
-        hash_encode.launches += 1
+    # the C entry launches nothing for an empty query
+    _build.launch("hash_encode", "hash_encode_forward", "PPPiiiiPPP", table,
+                  x, _resolutions(n_levels), n_levels, table_size, n_feat, n,
+                  out, idx, w, like=table, counter=hash_encode,
+                  launched=n > 0)
     return (out, idx, w) if corners else out
 
 
@@ -231,16 +211,10 @@ def hash_encode_backward(table: torch.Tensor, x: torch.Tensor,
     n = x.shape[0]
     d_table = torch.zeros_like(table)
     d_x = torch.empty((n, 3), device=table.device) if need_x else None
-    p = _build.ptr
-    err = _build.function("hash_encode_bwd", "hash_encode_backward",
-                          _BWD_ARGS)(
-        p(table), p(x), p(g), _resolutions(n_levels), n_levels, table_size,
-        n_feat, n, p(d_table), p(d_x) if need_x else None,
-        _build.stream_of(table))
-    if err:
-        raise RuntimeError(f"hash_encode_backward failed: CUDA error {err}")
-    if n > 0:
-        hash_encode_backward.launches += 1
+    _build.launch("hash_encode_bwd", "hash_encode_backward", "PPPPiiiiPP",
+                  table, x, g, _resolutions(n_levels), n_levels, table_size,
+                  n_feat, n, d_table, d_x, like=table,
+                  counter=hash_encode_backward, launched=n > 0)
     return d_table, d_x
 
 

@@ -21,8 +21,6 @@ CUDA tensors it launches the kernel or raises.  Each launch adds one to
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from texgs_torch import _build
@@ -61,26 +59,15 @@ def hash_gather_forward(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          f"{tuple(idx.shape)}")
     if table.device.type == "cpu":
         return gather_plain(table, idx)
-    if table.device.type != "cuda":
-        raise ValueError(f"hash_gather: unsupported device {table.device}")
-    for name, t, dtype in (("table", table, torch.float32),
-                           ("idx", idx, torch.int32)):
-        if t.device != table.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"hash_gather: {name} must be a contiguous "
-                             f"{dtype} tensor on {table.device}")
+    _build.require("hash_gather", "table", table, like=table)
+    _build.require("hash_gather", "idx", idx, like=table, dtype=torch.int32)
     levels, size, n_feat = table.shape
     rows, n = idx.shape
     out = torch.empty((rows, n_feat, n), device=table.device)
-    p = _build.ptr
-    v, i = ctypes.c_void_p, ctypes.c_int
-    err = _build.function("hash_gather", "hash_gather_forward",
-                          [v, v, i, i, i, i, i, v, v])(
-        p(table), p(idx), levels, rows // levels, size, n_feat, n, p(out),
-        _build.stream_of(table))
-    if err:
-        raise RuntimeError(f"hash_gather_forward failed: CUDA error {err}")
-    if rows * n > 0:  # the C entry launches nothing for an empty query
-        hash_gather.launches += 1
+    # the C entry launches nothing for an empty query
+    _build.launch("hash_gather", "hash_gather_forward", "PPiiiiiP", table,
+                  idx, levels, rows // levels, size, n_feat, n, out,
+                  like=table, counter=hash_gather, launched=rows * n > 0)
     return out
 
 
