@@ -38,11 +38,23 @@ one card.  Phases, in order; any failure exits non-zero:
                 Gaussian) and the 0.02 ms target, and profiled; its
                 entries carry P's launches over phase 5 and P''s over phase
                 7 (run after phase 9);
+  4c. rows   -- kernels G and G' (csrc/uvtex_rows.cu, uvtex_rows_bwd.cu) on
+                the same scene and view, projected by P, its uvs
+                normalize(xyz) with that map's Jacobian, at E = 0 and E = 3:
+                the table and the uv rows against the plain chain
+                (uvtex_rows_plain) bit for bit, every gradient against
+                autograd through it at 1e-5 of each column's largest (a G'
+                with an in-plane scaling column zeroed must fail); each
+                path's device launches (G and G'
+                one each); G and G' timed queued and host-launched beside
+                their bounds (300 and 316 B a Gaussian), and profiled; their
+                entries carry G's launches over phase 5 and G''s over phase
+                7 (run after phase 4b);
   5. main    -- 3 orbit views through TextureGaussian3D.visual_step, a
                 change_texture(chessboard, mode=0) retexture, the 3 views
                 again; every kernel's launch count is read over this phase
-                (A, B and P once a view, M twice: one launch a map, P'
-                never: a view renders under no_grad);
+                (A, B, P and G once a view, M twice: one launch a map, P'
+                and G' never: a view renders under no_grad);
   6. timings -- per-view and per-kernel times (CUDA events, median of 5),
                 and one render under torch.profiler: the device's busy
                 share and its time by kernel and by operator;
@@ -57,9 +69,9 @@ one card.  Phases, in order; any failure exits non-zero:
                 grid's: its table, points and output cotangent); then
                 STEPS steps are counted: every loss and parameter must stay
                 finite, the last 5 steps' mean loss must lie below the
-                first 5's, and kernels A, A', B, B', P, P', the fused hash
-                encode K5' and its backward K5'' must each launch once a
-                step (the K5 gather never);
+                first 5's, and kernels A, A', B, B', P, P', G, G', the
+                fused hash encode K5' and its backward K5'' must each launch
+                once a step (the K5 gather never);
   8. train kernels -- A' and B' against their plain versions on the
                 captured arguments;
   9. train timings -- the step's median time, each kernel's time, plain
@@ -212,7 +224,7 @@ one card.  Phases, in order; any failure exits non-zero:
                 at least the first card reading less 1.5 dB.
 
 The line before the last is a JSON object with one entry per kernel
-(fourteen); the last line is {"ok": true, "device": {...}}.
+(sixteen); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --golden-seeds 0,1,2
 
@@ -1248,6 +1260,7 @@ def train_phases(torch, model, cams, gt_views):
     from texgs_torch.kernels import project as pj
     from texgs_torch.kernels import tex_term as kt
     from texgs_torch.kernels import uvtex_fused as kf
+    from texgs_torch.kernels import uvtex_raster as kg
     from texgs_torch.kernels.cubemap import sample_cubemap
     from texgs_torch.nets import hash_encode as ke
 
@@ -1276,7 +1289,9 @@ def train_phases(torch, model, cams, gt_views):
                 "uvtex_fused_bwd": kf.fused_pairs_backward,
                 "tex_term_bwd": kt.tex_term_backward, **hash_counters(),
                 "project": pj.project_gaussians,
-                "project_bwd": pj.project_gaussians_backward}
+                "project_bwd": pj.project_gaussians_backward,
+                "uvtex_rows": kg.uvtex_rows,
+                "uvtex_rows_bwd": kg.uvtex_rows_backward}
     launches = check_train_run(
         torch, "train", model, step, counters,
         {name: 0 if name == "hash_gather" else STEPS for name in counters})
@@ -3742,6 +3757,201 @@ def projection_phase(torch, device, launches):
                   pb_ms, plain_all_ms, pb_bound, pb_by, err_pb)]
 
 
+# kernels G and G' (csrc/uvtex_rows.cu, uvtex_rows_bwd.cu): the bytes a
+# Gaussian moves at E = 0, the cells' (G reads xyz, scaling, rotation, uvs,
+# J, means2d, depth, conic, opacity, normal and colour, 140 B, and writes a
+# table row of 64 B and a uv row of 96; G' reads those inputs but the
+# colour, depth and normal, whose cotangents pass straight through, 112 B,
+# and 112 of cotangents, 16 table and 12 uv-row columns, and writes 92 B of
+# gradients, the colours' not wanted as in a step at SH degree 0) and the
+# f32 operations a Gaussian (counted from the sources)
+G_BYTES, G_BWD_BYTES = 300, 316
+OPS_G, OPS_G_BWD = 110, 330
+
+
+def check_columns(torch, name, got, want, rel_atol):
+    """check_scaled column by column (a 1-D tensor is one column), each
+    at rel_atol of its own largest |want|: on a flat disc the thin axis's
+    1/s^2 (~2e17) dominates an input's largest gradient, and must set no
+    tolerance for the other columns.  Returns the max abs error."""
+    if got.dim() == 1:
+        return check_scaled(torch, name, got, want, rel_atol, 0.0)
+    return max(check_scaled(torch, f"{name}[:, {j}]", got[:, j], want[:, j],
+                            rel_atol, 0.0) for j in range(got.shape[1]))
+
+
+def refuse_in_plane(torch, got, want):
+    """G''s d scaling with an in-plane column (the one whose largest
+    |want| is smallest: not the thin axis) zeroed must fail
+    check_columns' rule; logs how many values it puts beyond that rule and
+    beyond one tolerance for the whole input (1e-5 of its largest)."""
+    col = int(want.abs().amax(0).argmin())
+    bad = got.clone()
+    bad[:, col] = 0.0
+    err, mag = (bad - want).abs(), want.abs()
+    by_column = int((err > 1e-5 * mag.amax(0)).sum())
+    by_input = int((err > 1e-5 * mag.max()).sum())
+    log(f"  G' d scaling with column {col} zeroed: {by_column} values beyond "
+        f"1e-5 of their column's largest (refused); {by_input} beyond 1e-5 "
+        f"of the input's largest")
+    if by_column == 0:
+        fail("the per-column check could not refuse a G' whose in-plane "
+             "scaling gradient were zero")
+
+
+def rows_phase(torch, device, launches):
+    """Kernels G and G' on the benchmark's stage-3 DTU scene (100,000 flat
+    discs) and its first 800x600 view, projected by kernel P, its uvs
+    normalize(xyz) with that map's Jacobian: the table and the uv rows
+    against the plain chain (uvtex_rows_plain) bit for bit and each
+    column of each gradient against autograd through it (check_columns; a
+    G' with an in-plane scaling column zeroed must fail), at E = 0 (SH
+    degree 0, the cells') and E = 3 (the no-SH channels); the device
+    launches of both paths; the times beside the bounds.  launches:
+    {"uvtex_rows": G's launches over phase 5, "uvtex_rows_bwd": G''s over
+    phase 7's steps}.  Returns the two kernels' entries."""
+    from benchmark import harness, program, scene
+    from texgs_torch.kernels import project as pj
+    from texgs_torch.kernels import uvtex_raster as kg
+
+    cfg = harness.cell("tgs3-dtu-train")["config"]
+    state, _ = scene.make_state(cfg, 0, device)
+    cam = program.camera(scene.spiral_views(cfg["assumed"]["views"])[0])
+    with torch.no_grad():
+        rot = state["rotation"]
+        xyz = state["xyz"].detach().contiguous()
+        scaling = torch.exp(state["scaling"])
+        rotation = rot / (torch.linalg.norm(rot, dim=-1, keepdim=True) + 1e-12)
+        proj = pj.project_gaussians(
+            xyz, scaling, rotation, torch.sigmoid(state["opacity"]), None,
+            cam.world_view, cam.full_proj, cam.camera_center, cam.width,
+            cam.height, cam.tanfovx, cam.tanfovy)
+        norm = torch.linalg.norm(xyz, dim=-1, keepdim=True)
+        uvs = xyz / norm
+        eye = torch.eye(3, device=device)[None]
+        jac = ((eye - uvs[:, :, None] * uvs[:, None, :])
+               / norm[:, :, None]).reshape(-1, 9)
+    n = xyz.shape[0]
+    inputs = {"xyz": xyz, "scaling": scaling, "rotation": rotation,
+              "uvs": uvs, "means2d": proj.means2d, "depths": proj.depths,
+              "conics": proj.conics, "opacities": proj.opacities,
+              "normals": proj.normals,
+              "colors": torch.full((n, 3), 0.5, device=device)}
+    campos = cam.camera_center
+    campos_dev = torch.as_tensor(campos, device=device)
+    gen = torch.Generator(device=device).manual_seed(13)
+    log(f"[rows] G and G' on {n} flat discs (the DTU cells' scene), view 0 "
+        f"at {cam.width}x{cam.height}: {int((proj.radii > 0).sum())} visible")
+    err_g = err_gb = 0.0
+    cots = {}
+    for n_extra in (0, 3):
+        extra = (0.1 * torch.randn((n, 3), generator=gen, device=device)
+                 if n_extra else None)
+        width = 16 + n_extra
+        block = torch.randn((n, width + 24), generator=gen, device=device)
+        cots[n_extra] = (block[:, :width], block[:, width:])
+
+        def run(fn, where):
+            leaves = {k: v.clone().requires_grad_(True)
+                      for k, v in inputs.items()}
+            if extra is not None:
+                leaves["extra"] = extra.clone().requires_grad_(True)
+            out = fn(pj.ProjectedGaussians(
+                leaves["means2d"], leaves["depths"], leaves["conics"],
+                proj.radii, leaves["colors"], leaves["opacities"],
+                leaves["normals"]), leaves.get("extra"), leaves["xyz"],
+                leaves["scaling"], leaves["rotation"], leaves["uvs"], jac,
+                where)
+            return out, dict(zip(leaves, torch.autograd.grad(
+                out, list(leaves.values()), cots[n_extra])))
+        before = (kg.uvtex_rows.launches, kg.uvtex_rows_backward.launches)
+        got, got_g = run(kg.uvtex_rows, campos)
+        if (kg.uvtex_rows.launches - before[0],
+                kg.uvtex_rows_backward.launches - before[1]) != (1, 1):
+            fail("the rows did not launch G and G' once each")
+        want, want_g = run(kg.uvtex_rows_plain, campos_dev)
+        torch.cuda.synchronize()
+        for name, g, w in (("table", got[0], want[0]),
+                           ("uv rows", got[1], want[1])):
+            same = torch.equal(g, w)
+            log(f"  G E = {n_extra} {name} {tuple(g.shape)}: equal to the "
+                f"plain chain's bit for bit: {same}")
+            if not same:
+                fail(f"G E = {n_extra}: the {name} differ from the plain "
+                     "chain's")
+        for name in got_g:
+            err_gb = max(err_gb, check_columns(
+                torch, f"G' E = {n_extra} d {name}", got_g[name],
+                want_g[name], 1e-5))
+        if n_extra == 0:
+            refuse_in_plane(torch, got_g["scaling"], want_g["scaling"])
+
+    # launches and times, E = 0 and the gradients a step at SH 0 wants
+    args = (xyz, scaling, rotation, uvs, jac, proj.means2d, proj.depths,
+            proj.conics, proj.opacities, proj.normals, inputs["colors"],
+            None)
+    needs = (True,) * 4 + (False,) + (True,) * 5 + (False, False)
+    plain_proj = proj._replace(colors=inputs["colors"])
+    diff = [k for k in inputs if k != "colors"]
+
+    def fwd():
+        return kg.uvtex_rows_forward(campos, *args)
+
+    def bwd():
+        return kg.uvtex_rows_backward(campos, args, *cots[0], needs)
+
+    def plain_fwd():
+        return kg.uvtex_rows_plain(plain_proj, None, xyz, scaling, rotation,
+                                   uvs, jac, campos_dev)
+
+    def plain_fwd_bwd():
+        leaves = {k: inputs[k].clone().requires_grad_(True) for k in diff}
+        out = kg.uvtex_rows_plain(plain_proj._replace(
+            means2d=leaves["means2d"], depths=leaves["depths"],
+            conics=leaves["conics"], opacities=leaves["opacities"],
+            normals=leaves["normals"]), None, leaves["xyz"],
+            leaves["scaling"], leaves["rotation"], leaves["uvs"], jac,
+            campos_dev)
+        torch.autograd.grad(out, list(leaves.values()),
+                            [c.contiguous() for c in cots[0]])
+    g_launches, g_ops = device_launches(torch, fwd)
+    gb_launches, gb_ops = device_launches(torch, bwd)
+    plain_launches, _ = device_launches(torch, plain_fwd)
+    plain_all, _ = device_launches(torch, plain_fwd_bwd)
+    log(f"[rows] device launches: G {g_launches}, G' {gb_launches}; the "
+        f"plain chain {plain_launches} forward (its camera centre already on "
+        f"the card), {plain_all - plain_launches} in autograd's backward")
+    if (g_launches, gb_launches) != (1, 1):
+        fail(f"G and G' launched {g_launches} and {gb_launches} device "
+             f"operations, not one each: {g_ops}, {gb_ops}")
+    g_ms, g_host = kernel_ms(torch, fwd)
+    gb_ms, gb_host = kernel_ms(torch, bwd)
+    plain_ms = median_ms(torch, plain_fwd)
+    plain_all_ms = median_ms(torch, plain_fwd_bwd)
+    g_bound, g_by = bound(n * G_BYTES, n * OPS_G)
+    gb_bound, gb_by = bound(n * G_BWD_BYTES, n * OPS_G_BWD)
+    log(f"[time] kernel G uvtex_rows: {g_ms:.4f} ms queued (host-launched "
+        f"{g_host:.4f}), bound {g_bound:.4f} ms ({n * G_BYTES / 1e6:.1f} MB, "
+        f"by {g_by}); plain chain {plain_ms:.3f} ms host-launched")
+    log(f"[time] kernel G' uvtex_rows_bwd: {gb_ms:.4f} ms queued "
+        f"(host-launched {gb_host:.4f}), bound {gb_bound:.4f} ms "
+        f"({n * G_BWD_BYTES / 1e6:.1f} MB, by {gb_by}); plain forward and "
+        f"autograd backward {plain_all_ms:.3f} ms host-launched")
+    profile_device(torch, "kernel G", fwd, g_host)
+    profile_device(torch, "kernel G'", bwd, gb_host)
+    profile_device(torch, "the plain rows, forward and backward",
+                   plain_fwd_bwd, plain_all_ms)
+    replaces = ("none (XLA ops: texgs/kernels/uvtex_raster.py "
+                "build_uvtex_tables, build_uv_rows; tile_raster.py "
+                "build_gauss_table)")
+    return [entry("uvtex_rows", "texgs_torch/csrc/uvtex_rows.cu", replaces,
+                  launches["uvtex_rows"], g_ms, plain_ms, g_bound, g_by,
+                  err_g),
+            entry("uvtex_rows_bwd", "texgs_torch/csrc/uvtex_rows_bwd.cu",
+                  replaces + " and their autodiff", launches["uvtex_rows_bwd"],
+                  gb_ms, plain_all_ms, gb_bound, gb_by, err_gb)]
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3771,6 +3981,7 @@ def main(argv=None) -> int:
                                              cubemap_to_latlong, faces_to_cross,
                                              sample_cubemap)
     from texgs_torch.kernels import project as pj
+    from texgs_torch.kernels import uvtex_raster as kg
     from texgs_torch.kernels.tex_term import mlist_tex_term, tex_term
     from texgs_torch.kernels.tile_raster import N_FIXED_F, TABLE_FIXED
     from texgs_torch.kernels.uvtex_fused import fused_pairs, mlist_scan
@@ -3925,7 +4136,9 @@ def main(argv=None) -> int:
     main_counters = {"uvtex_fused": fused_pairs, "tex_term": tex_term,
                      "cubemap_maps": cubemap_maps,
                      "project": pj.project_gaussians,
-                     "project_bwd": pj.project_gaussians_backward}
+                     "project_bwd": pj.project_gaussians_backward,
+                     "uvtex_rows": kg.uvtex_rows,
+                     "uvtex_rows_bwd": kg.uvtex_rows_backward}
     for fn in main_counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -3940,8 +4153,8 @@ def main(argv=None) -> int:
     launches = {name: fn.launches for name, fn in main_counters.items()}
     log(f"[main] {2 * N_VIEWS} views (3 + 3 retextured) in {main_s:.3f} s; "
         f"launches {launches}")
-    # a view renders once, under no_grad (no P'), and makes two maps
-    a_view = {"cubemap_maps": 2, "project_bwd": 0}
+    # a view renders once, under no_grad (no P' or G'), and makes two maps
+    a_view = {"cubemap_maps": 2, "project_bwd": 0, "uvtex_rows_bwd": 0}
     for name, n in launches.items():
         if n != a_view.get(name, 1) * 2 * N_VIEWS:
             fail(f"kernel {name} launched {n} times on the main path, "
@@ -4054,6 +4267,10 @@ def main(argv=None) -> int:
     kernels += projection_phase(torch, device, {
         "project": launches["project"],
         "project_bwd": train_launches["project_bwd"]})
+    # ------------------------------------------------------------ 4c. rows
+    kernels += rows_phase(torch, device, {
+        "uvtex_rows": launches["uvtex_rows"],
+        "uvtex_rows_bwd": train_launches["uvtex_rows_bwd"]})
     del model, a_args, b_args, got_a, want_a, got_b, want_b, got_maps
     torch.cuda.empty_cache()
 

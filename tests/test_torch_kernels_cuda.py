@@ -56,6 +56,14 @@ through the plain chain at 1e-5 max|x| + 1e-4 |x| on the Gaussians whose
 det is well conditioned ((|ac| + b^2) / |det| <= 10, or det = 0), and on
 all within twice autograd's own largest distance from float64, + 1e-5 of
 the largest gradient.
+Kernel G (csrc/uvtex_rows.cu), the stage-3 render's per-Gaussian rows,
+rounds the plain chain's operations one at a time in its order and sums
+the quaternion's norm as torch's reduction does on the card: its table
+and uv rows are held bit for bit.  G' (csrc/uvtex_rows_bwd.cu) is held
+against autograd through the plain chain at 1e-5 of the largest entry of
+each column of each input's gradient: a flat disc's 1/s^2 on its thin axis
+(~2e17 in the benchmark's scene) dominates its input's largest entry, and
+must set no tolerance for the in-plane columns.
 """
 
 import math
@@ -2240,4 +2248,370 @@ def test_projection_engages_in_each_cell(cuda_device, tmp_path, cell):
           f"syncs in {n} renders; kernel.project_bwd {bwd['launches']}")
     assert own["launches"] + kernel["launches"] == n
     assert own["syncs"] + kernel["syncs"] == 0
+    assert bwd["launches"] == grads * n and bwd["syncs"] == 0
+
+
+# ------------------------------- the per-Gaussian rows (kernels G and G')
+ROW_INPUTS = ("xyz", "scaling", "rotation", "uvs", "means2d", "depths",
+              "conics", "opacities", "normals", "colors", "extra")
+
+
+def rows_inputs(case, n=2000, seed=0):
+    """CPU inputs of kernel G for a case: (dict of the differentiable
+    inputs ROW_INPUTS, J, the radii, the camera centre as a host array).
+    Random Gaussians on a textured sphere seen from one 80x64 orbit view,
+    with unnormalised quaternions and anisotropic scales, projected by the
+    plain chain; ``E3`` adds three extra channels, ``band`` moves the means
+    to the band of rows 16..47, ``odd`` takes a count that is not a
+    multiple of the block, ``clamps`` puts opacities at and below the
+    1e-12 clamp and a scale below the 1e-12 one (s^2 below 1e-24), and
+    ``flat_discs`` is the benchmark's stage-3 scene cut to its test size,
+    its uvs normalize(xyz) with that map's Jacobian."""
+    rng = np.random.default_rng(seed)
+    if case == "flat_discs":
+        inputs, cam, _ = projection_inputs("flat_discs")
+        xyz, scaling = inputs["xyz"], inputs["scaling"]
+        rot, opacity = inputs["rotation"], inputs["opacity"]
+        n = xyz.shape[0]
+    else:
+        n = n + 37 if case == "odd" else n
+        cam = orbit_cameras(1, radius=3.5, width=80, height=64)[0]
+        xyz = torch.as_tensor(textured_sphere_point_cloud(n, seed=seed).points,
+                              dtype=torch.float32)
+        scaling = torch.as_tensor(np.exp(rng.uniform(-4, -1, size=(n, 3))),
+                                  dtype=torch.float32)
+        rot = torch.as_tensor(rng.normal(size=(n, 4)), dtype=torch.float32)
+        opacity = torch.as_tensor(rng.uniform(0.05, 1.0, size=(n, 1)),
+                                  dtype=torch.float32)
+        if case == "clamps":
+            opacity[:3] = torch.tensor([[0.0], [1e-12], [1e-13]])
+            scaling[3, 1] = 1e-13
+    proj = project.project_plain(
+        xyz, scaling, rot, opacity, None,
+        *(torch.as_tensor(a) for a in (cam.world_view, cam.full_proj,
+                                       cam.camera_center)),
+        cam.width, cam.height, cam.tanfovx, cam.tanfovy)
+    if case == "band":
+        proj, _ = project.band_rows(proj, 16, 32)
+    norm = torch.linalg.norm(xyz, dim=-1, keepdim=True)
+    uvs = xyz / norm
+    if case == "flat_discs":
+        eye = torch.eye(3)[None]
+        jac = ((eye - uvs[:, :, None] * uvs[:, None, :])
+               / norm[:, :, None]).reshape(-1, 9)
+    else:
+        jac = torch.as_tensor(rng.normal(size=(n, 9)) * 0.3,
+                              dtype=torch.float32)
+    extra = (torch.as_tensor(rng.normal(size=(n, 3)), dtype=torch.float32)
+             if case == "E3" else None)
+    inputs = {"xyz": xyz, "scaling": scaling, "rotation": rot, "uvs": uvs,
+              "means2d": proj.means2d, "depths": proj.depths,
+              "conics": proj.conics, "opacities": proj.opacities,
+              "normals": proj.normals,
+              "colors": torch.as_tensor(rng.uniform(size=(n, 3)),
+                                        dtype=torch.float32),
+              "extra": extra}
+    return ({k: None if v is None else v.detach().contiguous()
+             for k, v in inputs.items()}, jac.contiguous(), proj.radii,
+            cam.camera_center)
+
+
+def rows_with(fn, inputs, jac, radii, campos, device):
+    """kernels.uvtex_raster ``fn`` ("uvtex_rows", the wrapper, or
+    "uvtex_rows_plain") on copies of the inputs on ``device`` that require
+    a gradient: ((table, uv_rows), leaves)."""
+    from texgs_torch.kernels import uvtex_raster as kg
+
+    leaves = {k: None if v is None
+              else v.to(device, copy=True).requires_grad_(True)
+              for k, v in inputs.items()}
+    proj = project.ProjectedGaussians(
+        leaves["means2d"], leaves["depths"], leaves["conics"],
+        radii.to(device), leaves["colors"], leaves["opacities"],
+        leaves["normals"])
+    if fn == "uvtex_rows_plain":
+        campos = torch.as_tensor(campos, device=device)
+    out = getattr(kg, fn)(proj, leaves["extra"], leaves["xyz"],
+                          leaves["scaling"], leaves["rotation"],
+                          leaves["uvs"], jac.to(device), campos)
+    return out, leaves
+
+
+def old_rows(inputs, jac, radii, campos):
+    """rasterize_uvtex's rows as it built them before kernel G: the
+    table, then the uv rows of build_uvtex_tables."""
+    proj = project.ProjectedGaussians(
+        inputs["means2d"], inputs["depths"], inputs["conics"], radii,
+        inputs["colors"], inputs["opacities"], inputs["normals"])
+    table = tile_raster.build_gauss_table(proj, inputs["extra"])
+    tables = uvtex_raster.build_uvtex_tables(
+        inputs["xyz"], inputs["scaling"], inputs["rotation"], inputs["uvs"],
+        jac, torch.as_tensor(campos))
+    return table, uvtex_raster.build_uv_rows(tables)
+
+
+@pytest.mark.parametrize("case", ["E0", "E3", "band", "clamps"])
+def test_uvtex_rows_wrapper_runs_plain_version_on_cpu(case):
+    """On CPU tensors uvtex_raster.uvtex_rows is the chain rasterize_uvtex ran
+    before kernel G, bit for bit, outputs and gradients, from the camera's
+    numpy centre, and counts no launch."""
+    from texgs_torch.kernels import uvtex_raster as kg
+
+    inputs, jac, radii, campos = rows_inputs(case, n=300)
+    before = (kg.uvtex_rows.launches, kg.uvtex_rows_backward.launches)
+    (table, uv_rows), leaves = rows_with("uvtex_rows", inputs, jac, radii,
+                                         campos, "cpu")
+    want_leaves = {k: None if v is None else v.clone().requires_grad_(True)
+                   for k, v in inputs.items()}
+    want = old_rows(want_leaves, jac, radii, campos)
+    assert torch.equal(table, want[0]) and torch.equal(uv_rows, want[1])
+    assert table.shape == (300, 16 + (3 if case == "E3" else 0))
+    gen = torch.Generator().manual_seed(5)
+    cots = [torch.randn(t.shape, generator=gen) for t in want]
+    torch.autograd.backward([table, uv_rows], cots)
+    torch.autograd.backward(list(want), cots)
+    for k, leaf in leaves.items():
+        if leaf is not None:
+            assert torch.equal(leaf.grad, want_leaves[k].grad), k
+    assert (kg.uvtex_rows.launches,
+            kg.uvtex_rows_backward.launches) == before
+
+
+def _meta_rows_args(n=40, n_extra=3):
+    """Kernel G's twelve input tensors on the meta device (no data)."""
+    from texgs_torch.kernels import uvtex_raster as kg
+
+    return [None if width is None and not n_extra else
+            torch.empty((n,) if width == 1 else (n, width or n_extra),
+                        device="meta")
+            for _, width in kg._INPUTS]
+
+
+@pytest.mark.parametrize("which, fault", [
+    (which, fault) for which in ("forward", "backward")
+    for fault in ("dtype", "shape", "device", "strided")] + [
+    ("backward", "cotangent")])
+def test_uvtex_rows_rejects_what_its_c_entry_cannot_take(which, fault):
+    """kernels G and G' refuse, through _build.require and before any C
+    call, an input of another dtype, shape or device than the first's, a
+    strided one, and (G') a cotangent of another width."""
+    from texgs_torch.kernels import uvtex_raster as kg
+
+    args = _meta_rows_args()
+    bad = {"dtype": args[7].double(), "shape": args[7][:, :2],
+           "device": torch.empty(args[7].shape),
+           "strided": args[7].T.contiguous().T, "cotangent": args[7]}[fault]
+    if fault != "cotangent":
+        args[7] = bad            # the conics
+    campos = np.zeros(3, np.float32)
+    g_table = torch.empty((40, 19 if fault != "cotangent" else 18),
+                          device="meta")
+    with pytest.raises(ValueError, match="uvtex_rows"):
+        if which == "forward":
+            kg.uvtex_rows_forward(campos, *args)
+        else:
+            kg.uvtex_rows_backward(campos, args, g_table, None, [True] * 12)
+
+
+def test_uvtex_rows_wrappers_launch_once_through_autograd(monkeypatch):
+    """On meta tensors with the C call faked: a differentiated call of the
+    CUDA branch launches G once with the entry's argument kinds, its
+    backward G' once (J takes no gradient), and each adds one to its
+    counter."""
+    from texgs_torch.kernels import uvtex_raster as kg
+
+    calls = []
+
+    def function(source, entry, signature):
+        def call(*args):
+            calls.append(entry)
+            assert len(args) == len(signature)
+            for kind, a in zip(signature, args):
+                assert isinstance(a, int) if kind == "i" else not isinstance(
+                    a, float)
+            return 0
+        return call
+    monkeypatch.setattr(kg._build, "function", function)
+    monkeypatch.setattr(kg._build, "stream_of", lambda t: None)
+    args = [None if t is None else t.requires_grad_(i != 4)
+            for i, t in enumerate(_meta_rows_args())]
+    before = (kg.uvtex_rows.launches, kg.uvtex_rows_backward.launches)
+    table, uv_rows = kg._UVTexRows.apply(np.zeros(3, np.float32), *args)
+    assert table.shape == (40, 19) and uv_rows.shape == (40, 24)
+    grads = torch.autograd.grad(table, [a for a in args if a.requires_grad],
+                                torch.empty_like(table))
+    assert all(g is not None and g.device.type == "meta" for g in grads)
+    assert calls == ["uvtex_rows_forward", "uvtex_rows_backward"]
+    assert (kg.uvtex_rows.launches - before[0],
+            kg.uvtex_rows_backward.launches - before[1]) == (1, 1)
+
+
+def test_plain_twin_swaps_the_uvtex_rows():
+    """verify_compiled's plain twin replaces uvtex_raster.uvtex_rows with
+    uvtex_rows_plain, fed the camera's numpy centre as a tensor, so the
+    twin's renders check kernels G and G'."""
+    from texgs_torch.kernels import uvtex_raster as kg
+    from texgs_torch.tools.verify_compiled import plain_kernels
+
+    inputs, jac, radii, campos = rows_inputs("E3", n=200)
+    want, _ = rows_with("uvtex_rows_plain", inputs, jac, radii, campos, "cpu")
+    wrapper = kg.uvtex_rows
+    with plain_kernels():
+        assert kg.uvtex_rows is not wrapper
+        got, _ = rows_with("uvtex_rows", inputs, jac, radii, campos, "cpu")
+    assert kg.uvtex_rows is wrapper
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# the cotangents each card case hands G': both (one a column view of a
+# wider block), or one absent
+ROWS_COTANGENTS = {"E0": "both", "E3": "no uv_rows", "band": "no table",
+                   "odd": "both", "clamps": "both", "flat_discs": "both"}
+
+
+def column_offsets(got, want):
+    """(each column's max |got - want|, each column's max |want|): a
+    1-D tensor is one column."""
+    got, want = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
+    return (got - want).abs().amax(0), want.abs().amax(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ROWS_COTANGENTS))
+def test_uvtex_rows_kernels_match_plain(cuda_device, case):
+    """Kernel G against the plain chain on the card: the table and the uv
+    rows bit for bit (the quaternion's norm too, summed in the order of
+    torch's reduction there); G' against autograd through the plain chain
+    on the same cotangents, each column of every input's gradient within
+    1e-5 of autograd's largest entry in that column; one launch each.  On
+    the flat discs, a G' whose in-plane scaling column were zero fails
+    the check."""
+    from texgs_torch.kernels import uvtex_raster as kg
+
+    inputs, jac, radii, campos = rows_inputs(case)
+    before = (kg.uvtex_rows.launches, kg.uvtex_rows_backward.launches)
+    (got, got_leaves), (want, want_leaves) = (
+        rows_with(fn, inputs, jac, radii, campos, cuda_device)
+        for fn in ("uvtex_rows", "uvtex_rows_plain"))
+    assert torch.equal(got[0], want[0]), "table"
+    assert torch.equal(got[1], want[1]), "uv rows"
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    n, width = got[0].shape
+    block = torch.randn((n, width + 24 + 5), generator=gen,
+                        device=cuda_device)
+    cots = [block[:, :width], block[:, width:width + 24]]
+    outs = [0, 1]
+    if ROWS_COTANGENTS[case] != "both":
+        outs.remove(0 if ROWS_COTANGENTS[case] == "no table" else 1)
+    for rows in (got, want):
+        torch.autograd.backward([rows[i] for i in outs], [cots[i] for i in outs])
+    assert (kg.uvtex_rows.launches - before[0],
+            kg.uvtex_rows_backward.launches - before[1]) == (1, 1)
+    for k in ROW_INPUTS:
+        g, w = got_leaves[k], want_leaves[k]
+        if g is None:
+            continue
+        if w.grad is None:   # no path from the cotangents given
+            assert g.grad is None or not bool(g.grad.any()), k
+            continue
+        assert bool(torch.isfinite(g.grad).all()), k
+        err, scale = column_offsets(g.grad, w.grad)
+        print(f"rows {case}: d {k} max |kernel - autograd| by column "
+              f"{err.tolist()} (max |autograd| {scale.tolist()})")
+        assert bool((err <= 1e-5 * scale).all()), k
+    if case == "flat_discs":
+        # the thin axis is the column with the largest gradient; zero
+        # another: the check refuses it, as one tolerance an input did not
+        w = want_leaves["scaling"].grad
+        bad = got_leaves["scaling"].grad.clone()
+        bad[:, int(w.abs().amax(0).argmin())] = 0.0
+        err, scale = column_offsets(bad, w)
+        assert not bool((err <= 1e-5 * scale).all())
+        print(f"rows flat_discs: d scaling, an in-plane column zeroed: "
+              f"errors {err.tolist()} by column against 1e-5 of "
+              f"{scale.tolist()}; 1e-5 of the input's largest, "
+              f"{1e-5 * w.abs().max().item():.3g}, would have passed it")
+
+
+@pytest.mark.cuda
+def test_uvtex_rows_kernels_empty(cuda_device):
+    from texgs_torch.kernels import uvtex_raster as kg
+
+    inputs, jac, radii, campos = rows_inputs("E3", n=20)
+    inputs = {k: None if v is None else v[:0].contiguous()
+              for k, v in inputs.items()}
+    before = (kg.uvtex_rows.launches, kg.uvtex_rows_backward.launches)
+    (table, uv_rows), leaves = rows_with("uvtex_rows", inputs, jac[:0],
+                                         radii[:0], campos, cuda_device)
+    assert table.shape == (0, 19) and uv_rows.shape == (0, 24)
+    (table.sum() + uv_rows.sum()).backward()
+    assert leaves["xyz"].grad.shape == (0, 3)
+    assert (kg.uvtex_rows.launches,
+            kg.uvtex_rows_backward.launches) == before
+
+
+@pytest.mark.cuda
+def test_verifier_refuses_corrupted_uvtex_rows_on_the_card(cuda_device,
+                                                          monkeypatch):
+    """Kernel G's table with its red channel (column 7) off by 0.25: the
+    verifier's fused-path check, whose twin runs the plain rows, fails."""
+    from texgs_torch.kernels import uvtex_raster as kg
+
+    verify_compiled = _small_verifier(monkeypatch)
+    clean = kg.uvtex_rows_forward
+
+    def corrupted(*args, **kw):
+        table, uv_rows = clean(*args, **kw)
+        return table + torch.where(torch.arange(
+            table.shape[1], device=table.device) == 7, 0.25, 0.0), uv_rows
+    monkeypatch.setattr(kg, "uvtex_rows_forward", corrupted)
+    ok, results = verify_compiled.verify_uvtex(20000, 128, 128, 64,
+                                               device=cuda_device,
+                                               backend="auto")
+    assert not ok
+    assert results["fwd_image"] > verify_compiled.REL_TOL_FWD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["tgs3-dtu-train", "tgs3-obj-view"])
+def test_uvtex_rows_engage_in_each_stage3_cell(cuda_device, tmp_path, cell):
+    """On the stage-3 cells cut to their test size, a training step or a
+    viewer frame builds its rows in one launch of kernel G, and a training
+    step's backward in one of G'; a frame (under no_grad) launches no G'."""
+    from benchmark.tests.tiny import tiny_cell
+    from texgs_torch.kernels import uvtex_raster as kg
+
+    c = tiny_cell(cell)
+    if cell == "tgs3-dtu-train":
+        from benchmark.drivers import train_loop
+        ses = train_loop.Session(c["config"], c["work"]["traffic_params"], 7,
+                                 cuda_device)
+        fn, grads = ses.step, 1
+    else:
+        from benchmark import program, scene
+        from benchmark.drivers import view_loop
+        cfg, work = c["config"], c["work"]["traffic_params"]
+        state, _ = scene.make_state(cfg, 7, cuda_device)
+        model = program.build_model(cfg, state, view_loop.hyper(cfg),
+                                    cuda_device, train=False)
+        cam = program.camera(view_loop.orbit(work, 7)(0))
+
+        def fn():
+            model.visual_step(0, 0, cam, None)
+        grads = 0
+    fn()
+    n = 2
+    before = (kg.uvtex_rows.launches, kg.uvtex_rows_backward.launches)
+    rows = reduced_spans(tmp_path, fn, n)["spans"]
+    assert (kg.uvtex_rows.launches - before[0],
+            kg.uvtex_rows_backward.launches - before[1]) == (n, grads * n)
+    empty = {"launches": 0, "syncs": 0}
+    fwd = rows.get("kernel.uvtex_rows", empty)
+    bwd = rows.get("kernel.uvtex_rows_bwd", empty)
+    own = rows.get("render", empty)
+    print(f"{cell}: render own {own['launches']} launches and "
+          f"{own['syncs']} syncs, kernel.uvtex_rows {fwd['launches']}, "
+          f"kernel.uvtex_rows_bwd {bwd['launches']} in {n} renders")
+    assert fwd["launches"] == n and fwd["syncs"] == 0
     assert bwd["launches"] == grads * n and bwd["syncs"] == 0

@@ -203,24 +203,12 @@ project_bwd_kernel(const __grid_constant__ Camera cam, int n,
   // normal
   float dR[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (src == COV_BUILT) {
-    const float* r = rot.r;
-    // d cov (packed) as a symmetric matrix M with the diagonal doubled:
-    // d R[i][c] = S_c sum_j M_ij R[j][c]
-    const float M[9] = {2.f * d_cov[0], d_cov[1], d_cov[2],
-                        d_cov[1], 2.f * d_cov[3], d_cov[4],
-                        d_cov[2], d_cov[4], 2.f * d_cov[5]};
-    for (int c = 0; c < 3; ++c) {
-      const float r0 = r[c], r1 = r[3 + c], r2 = r[6 + c];
-      const float dS = d_cov[0] * r0 * r0 + d_cov[1] * r0 * r1
-                       + d_cov[2] * r0 * r2 + d_cov[3] * r1 * r1
-                       + d_cov[4] * r1 * r2 + d_cov[5] * r2 * r2;
-      for (int row = 0; row < 3; ++row)
-        dR[3 * row + c] += f.sq[c] * (M[3 * row] * r0 + M[3 * row + 1] * r1
-                                      + M[3 * row + 2] * r2);
-      // S_c = (m s_c)^2
-      if (d.scaling != nullptr)
-        d.scaling[3 * k + c] = dS * 2.f * f.sm[c] * cam.scaling_modifier;
-    }
+    float dS[3];
+    packed_rdr_vjp(rot.r, f.sq, d_cov, dR, dS);
+    // S_c = (m s_c)^2
+    if (d.scaling != nullptr)
+      for (int c = 0; c < 3; ++c)
+        d.scaling[3 * k + c] = dS[c] * 2.f * f.sm[c] * cam.scaling_modifier;
   } else if (d.cov != nullptr) {
     float* o = d.cov + (src == COV_PACKED ? 6 : 9) * k;
     if (src == COV_PACKED) {
@@ -235,32 +223,8 @@ project_bwd_kernel(const __grid_constant__ Camera cam, int n,
   const float sign = facing_sign(cam, rot, idx, x, y, z);
   for (int row = 0; row < 3; ++row) dR[3 * row + idx] += g_n[row] * sign;
 
-  if (d.rotation != nullptr) {
-    const float w = rot.w, qx = rot.x, qy = rot.y, qz = rot.z;
-    // rotation_channels' entries into the normalised quaternion
-    const float dw = 2.f * (-qz * dR[1] + qy * dR[2] + qz * dR[3]
-                            - qx * dR[5] - qy * dR[6] + qx * dR[7]);
-    const float dx = 2.f * (qy * dR[1] + qz * dR[2] + qy * dR[3] - w * dR[5]
-                            + qz * dR[6] + w * dR[7])
-                     - 4.f * qx * (dR[4] + dR[8]);
-    const float dy = 2.f * (qx * dR[1] + w * dR[2] + qx * dR[3] + qz * dR[5]
-                            - w * dR[6] + qz * dR[7])
-                     - 4.f * qy * (dR[0] + dR[8]);
-    const float dz = 2.f * (-w * dR[1] + qx * dR[2] + w * dR[3] + qy * dR[5]
-                            + qx * dR[6] + qy * dR[7])
-                     - 4.f * qz * (dR[0] + dR[4]);
-    // qn = q / (|q| + 1e-12)
-    const float qr[4] = {rotation[4 * k], rotation[4 * k + 1],
-                         rotation[4 * k + 2], rotation[4 * k + 3]};
-    const float dn[4] = {dw, dx, dy, dz};
-    const float den = add(rot.nrm, NORM_EPS);
-    float d_den = 0.f;
-    for (int c = 0; c < 4; ++c) d_den -= dn[c] * qr[c];
-    d_den /= den * den;
-    const float d_nrm = rot.nrm == 0.f ? 0.f : d_den / rot.nrm;
-    for (int c = 0; c < 4; ++c)
-      d.rotation[4 * k + c] = dn[c] / den + d_nrm * qr[c];
-  }
+  if (d.rotation != nullptr)
+    rotation_vjp(rot, rotation + 4 * k, dR, d.rotation + 4 * k);
 
   if (d.opacity != nullptr) {
     const bool visible = f.p[3] > NEAR_CULL && f.det_ok && opacity[k] > 0.f;

@@ -1,8 +1,10 @@
 // Device code shared by kernel P (project.cu), the Gaussian projection, and
-// its backward P' (project_bwd.cu): the camera each takes by value and the
-// forward chain of one Gaussian.  P' recomputes P's intermediates from the
-// saved inputs instead of reading them from memory, so both must round
-// every operation the same way: one definition here keeps them together.
+// its backward P' (project_bwd.cu): the camera each takes by value, the
+// forward chain of one Gaussian and the VJPs of its rotation.  P'
+// recomputes P's intermediates from the saved inputs instead of reading
+// them from memory, so both must round every operation the same way: one
+// definition here keeps them together.  Kernels G and G' (uvtex_rows*.cu)
+// take the rotation and its VJPs from here too.
 //
 // The chain is kernels/project.py's plain version (project_plain) for one
 // Gaussian.  Its elementwise operations are rounded one at a time, in the
@@ -74,14 +76,12 @@ struct Rotation {
   float r[9];
 };
 
-__device__ __forceinline__ Rotation rotation_of(float qw, float qx, float qy,
-                                                float qz) {
+// The rotation of q given its norm nrm.
+__device__ __forceinline__ Rotation rotation_with_norm(float qw, float qx,
+                                                       float qy, float qz,
+                                                       float nrm) {
   Rotation o;
-  float s = mul(qw, qw);
-  s = __fmaf_rn(qx, qx, s);
-  s = __fmaf_rn(qy, qy, s);
-  s = __fmaf_rn(qz, qz, s);
-  o.nrm = __fsqrt_rn(s);
+  o.nrm = nrm;
   const float d = add(o.nrm, NORM_EPS);
   const float w = div(qw, d), x = div(qx, d), y = div(qy, d), z = div(qz, d);
   o.w = w; o.x = x; o.y = y; o.z = z;
@@ -95,6 +95,68 @@ __device__ __forceinline__ Rotation rotation_of(float qw, float qx, float qy,
   o.r[7] = mul(2.f, add(mul(y, z), mul(w, x)));
   o.r[8] = sub(1.f, mul(2.f, add(mul(x, x), mul(y, y))));
   return o;
+}
+
+// rotation_with_norm, |q| summed in order, an FMA a square.
+__device__ __forceinline__ Rotation rotation_of(float qw, float qx, float qy,
+                                                float qz) {
+  float s = mul(qw, qw);
+  s = __fmaf_rn(qx, qx, s);
+  s = __fmaf_rn(qy, qy, s);
+  s = __fmaf_rn(qz, qz, s);
+  return rotation_with_norm(qw, qx, qy, qz, __fsqrt_rn(s));
+}
+
+// The VJP of the packed symmetric matrix R diag(S) R^T (entry (i, j):
+// S0 r_i0 r_j0 + S1 r_i1 r_j1 + S2 r_i2 r_j2, packed xx, xy, xz, yy, yz,
+// zz) for its cotangent d: adds R's gradient to dR (row-major) and writes
+// S's to dS.
+__device__ __forceinline__ void packed_rdr_vjp(const float* r, const float* S,
+                                               const float* d, float* dR,
+                                               float* dS) {
+  // d as a symmetric matrix M with the diagonal doubled:
+  // d R[i][c] = S_c sum_j M_ij R[j][c]
+  const float M[9] = {2.f * d[0], d[1], d[2],
+                      d[1], 2.f * d[3], d[4],
+                      d[2], d[4], 2.f * d[5]};
+  for (int c = 0; c < 3; ++c) {
+    const float r0 = r[c], r1 = r[3 + c], r2 = r[6 + c];
+    dS[c] = d[0] * r0 * r0 + d[1] * r0 * r1 + d[2] * r0 * r2
+            + d[3] * r1 * r1 + d[4] * r1 * r2 + d[5] * r2 * r2;
+    for (int row = 0; row < 3; ++row)
+      dR[3 * row + c] += S[c] * (M[3 * row] * r0 + M[3 * row + 1] * r1
+                                 + M[3 * row + 2] * r2);
+  }
+}
+
+// The VJP of rotation_with_norm: dR, the gradient of the rotation matrix's nine
+// entries (row-major), through rotation_channels' entries into the
+// normalised quaternion, then through q / (|q| + 1e-12) into the raw
+// quaternion q, written to dq (no gradient through |q| = 0, as torch's norm
+// backward).
+__device__ __forceinline__ void rotation_vjp(const Rotation& rot,
+                                             const float* q, const float* dR,
+                                             float* dq) {
+  const float w = rot.w, qx = rot.x, qy = rot.y, qz = rot.z;
+  const float dw = 2.f * (-qz * dR[1] + qy * dR[2] + qz * dR[3]
+                          - qx * dR[5] - qy * dR[6] + qx * dR[7]);
+  const float dx = 2.f * (qy * dR[1] + qz * dR[2] + qy * dR[3] - w * dR[5]
+                          + qz * dR[6] + w * dR[7])
+                   - 4.f * qx * (dR[4] + dR[8]);
+  const float dy = 2.f * (qx * dR[1] + w * dR[2] + qx * dR[3] + qz * dR[5]
+                          - w * dR[6] + qz * dR[7])
+                   - 4.f * qy * (dR[0] + dR[8]);
+  const float dz = 2.f * (-w * dR[1] + qx * dR[2] + w * dR[3] + qy * dR[5]
+                          + qx * dR[6] + qy * dR[7])
+                   - 4.f * qz * (dR[0] + dR[4]);
+  const float qr[4] = {q[0], q[1], q[2], q[3]};
+  const float dn[4] = {dw, dx, dy, dz};
+  const float den = add(rot.nrm, NORM_EPS);
+  float d_den = 0.f;
+  for (int c = 0; c < 4; ++c) d_den -= dn[c] * qr[c];
+  d_den /= den * den;
+  const float d_nrm = rot.nrm == 0.f ? 0.f : d_den / rot.nrm;
+  for (int c = 0; c < 4; ++c) dq[c] = dn[c] / den + d_nrm * qr[c];
 }
 
 // Everything the forward computes for one Gaussian that its outputs or the

@@ -22,19 +22,28 @@ M-list).  The blend and the M-lists take one of two paths
     kernels.uvtex_mlist writes the M-lists from the same pairs (kernel 2;
     plain version ``mlist_only_scan``).
 
-Either way kernels.tex_term computes the texture term from the M-lists
-(kernel B; plain version ``mlist_tex_term`` there).  texgs's
+Either way ``uvtex_rows`` builds the per-Gaussian rows both paths read,
+the blend table and the uv rows: for CPU tensors its plain version
+``uvtex_rows_plain`` (tile_raster's ``build_gauss_table``, and
+``build_uv_rows`` of ``build_uvtex_tables``, differentiable by autograd);
+for CUDA tensors one launch of kernel G (csrc/uvtex_rows.cu) and, where an
+input needs a gradient, one of its VJP G' (csrc/uvtex_rows_bwd.cu) in the
+backward.  The kernels take the camera centre by value, so the rows copy
+nothing to the device.  kernels.tex_term computes the texture term from
+the M-lists (kernel B; plain version ``mlist_tex_term`` there).  texgs's
 ``reference`` backend is the dense oracle, ``rasterize_uvtex_reference``:
 every intersection of every pixel, no M-list, in plain torch.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from texgs_torch import _build
 from texgs_torch.core.camera import Camera
 from texgs_torch.kernels.binning import (build_pairs, grid_shape,
                                          with_tile_order)
@@ -42,10 +51,10 @@ from texgs_torch.kernels.cubemap import sample_cubemap
 from texgs_torch.kernels.project import ProjectedGaussians, band_rows
 from texgs_torch.kernels.reference import (RasterOutput, compose,
                                            dense_blend, depth_sorted_visible)
-from texgs_torch.kernels.tile_raster import (assemble_image, build_gauss_table,
-                                             tiles_to_image)
+from texgs_torch.kernels.tile_raster import (TABLE_FIXED, assemble_image,
+                                             build_gauss_table, tiles_to_image)
 from texgs_torch.utils.sh import C0, eval_sh
-from texgs_torch.utils.spans import span
+from texgs_torch.utils.spans import span, spanned
 from texgs_torch.utils.transforms import rotation_channels
 
 T_STAR_MAX = 1e4
@@ -65,11 +74,13 @@ class UVTexTables(NamedTuple):
 def residual_sh_colors(shs: Optional[torch.Tensor], xyz, campos,
                        active_sh_degree: int) -> torch.Tensor:
     """max(0, 0.5 + SH_rest), the per-Gaussian part of the color.  ``shs``
-    holds coefficients for degrees >= 1 only ((N, K-1, 3))."""
+    holds coefficients for degrees >= 1 only ((N, K-1, 3)).  campos, the
+    camera centre (a host array or a tensor), goes to the Gaussians' device
+    only where it is read: at degree 1 or more."""
     n = xyz.shape[0]
     if shs is None or active_sh_degree == 0:
         return torch.full((n, 3), 0.5, device=xyz.device)
-    dirs = xyz - campos[None, :]
+    dirs = xyz - torch.as_tensor(campos, device=xyz.device)[None, :]
     dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
     full = torch.cat([torch.zeros((n, 1, 3), device=xyz.device), shs], dim=1)
     rest = eval_sh(active_sh_degree, full.transpose(-1, -2), dirs)
@@ -112,6 +123,156 @@ def build_uv_rows(tables: UVTexTables) -> torch.Tensor:
     pad = torch.zeros((tables.sv.shape[0], 3), device=tables.sv.device)
     return torch.cat([tables.sv, tables.siginv, tables.base_uv, tables.jmat,
                       pad], dim=1).contiguous()
+
+
+# kernel G's inputs, in csrc/uvtex_rows_common.cuh's Inputs order, with
+# their widths (1: a (N,) tensor; None: the extra channels, any width)
+_INPUTS = (("xyz", 3), ("scaling", 3), ("rotation", 4), ("uvs", 3),
+           ("jac", 9), ("means2d", 2), ("depths", 1), ("conics", 3),
+           ("opacities", 1), ("normals", 3), ("colors", 3), ("extra", None))
+
+
+def uvtex_rows_plain(proj: ProjectedGaussians, extra_attrs, xyz, scaling,
+                     rotation, uvs, grad_uvs, campos) -> tuple:
+    """(table (N, 16 + E), uv_rows (N, 24)): the plain version of kernel
+    G, on any device.  proj.colors holds the base colours; campos is a
+    tensor on the Gaussians' device."""
+    tables = build_uvtex_tables(xyz, scaling, rotation, uvs, grad_uvs, campos)
+    return build_gauss_table(proj, extra_attrs), build_uv_rows(tables)
+
+
+class _Inputs(ctypes.Structure):
+    """csrc/uvtex_rows_common.cuh's Inputs, field for field."""
+    _fields_ = [(name, ctypes.c_void_p) for name, _ in _INPUTS] + [
+        ("n_extra", ctypes.c_int), ("campos", ctypes.c_float * 3)]
+
+
+class _Cotangents(ctypes.Structure):
+    """csrc/uvtex_rows_bwd.cu's Cotangents, field for field."""
+    _fields_ = [("table", ctypes.c_void_p), ("uv_rows", ctypes.c_void_p)] + [
+        (name, ctypes.c_longlong) for name in
+        ("table_s0", "table_s1", "uv_rows_s0", "uv_rows_s1")]
+
+
+class _Gradients(ctypes.Structure):
+    """csrc/uvtex_rows_bwd.cu's Gradients, field for field: every input but
+    the constant J."""
+    _fields_ = [(name, ctypes.c_void_p) for name, _ in _INPUTS
+                if name != "jac"]
+
+
+def _inputs_arg(fn: str, campos, tensors) -> tuple:
+    """Refuses G's (or G''s) inputs where its C entry cannot take them;
+    returns (the Inputs struct, n, the extra channels' count)."""
+    xyz = tensors[0]
+    _build.require(fn, "xyz", xyz, like=xyz, shape=(None, 3))
+    n = xyz.shape[0]
+    if n >= 2 ** 31:
+        raise ValueError(f"{fn}: {n} Gaussians, the kernel indexes int32")
+    arg = _Inputs()
+    for (name, width), t in zip(_INPUTS, tensors):
+        if t is None and name == "extra":
+            continue
+        _build.require(fn, name, t, like=xyz,
+                       shape=(n,) if width == 1 else (n, width))
+        setattr(arg, name, t.data_ptr())
+    n_extra = 0 if tensors[-1] is None else tensors[-1].shape[1]
+    arg.n_extra = n_extra
+    arg.campos[:] = np.asarray(campos, dtype=np.float32).reshape(3).tolist()
+    return arg, n, n_extra
+
+
+@spanned("kernel.uvtex_rows")
+def uvtex_rows_forward(campos, xyz, scaling, rotation, uvs, jac, means2d,
+                       depths, conics, opacities, normals, colors,
+                       extra=None) -> tuple:
+    """Kernel G without autograd, on CUDA tensors: (table, uv_rows) as
+    ``uvtex_rows_plain`` gives them, in one launch of csrc/uvtex_rows.cu
+    (none for N = 0).  campos: the camera centre, a host array."""
+    arg, n, n_extra = _inputs_arg("uvtex_rows", campos, (
+        xyz, scaling, rotation, uvs, jac, means2d, depths, conics, opacities,
+        normals, colors, extra))
+    table = torch.empty((n, TABLE_FIXED + n_extra), device=xyz.device)
+    uv_rows = torch.empty((n, UV_COLS), device=xyz.device)
+    _build.launch("uvtex_rows", "uvtex_rows_forward", "PiPP",
+                  ctypes.byref(arg), n, table, uv_rows, like=xyz,
+                  counter=uvtex_rows, launched=n > 0)
+    return table, uv_rows
+
+
+@spanned("kernel.uvtex_rows_bwd")
+def uvtex_rows_backward(campos, inputs, g_table, g_uv_rows, needs) -> tuple:
+    """Kernel G': the VJP of kernel G for the same inputs, on CUDA tensors,
+    in one launch of csrc/uvtex_rows_bwd.cu (none for N = 0).
+
+    inputs: G's twelve tensors (xyz ... extra, as ``uvtex_rows_forward``
+    takes them).  g_table, g_uv_rows: the cotangents of G's outputs,
+    float32 tensors of any strides or None (zero).  needs: whether each
+    input wants a gradient.  Returns their gradients, None where not
+    wanted and for J, a constant."""
+    name = "uvtex_rows_backward"
+    arg, n, n_extra = _inputs_arg(name, campos, inputs)
+    g = _Cotangents()
+    for key, t, width in (("table", g_table, TABLE_FIXED + n_extra),
+                          ("uv_rows", g_uv_rows, UV_COLS)):
+        if t is None:
+            continue
+        _build.require(name, f"the cotangent of {key}", t, like=inputs[0],
+                       shape=(n, width), contiguous=False)
+        setattr(g, key, t.data_ptr())
+        setattr(g, f"{key}_s0", t.stride(0))
+        setattr(g, f"{key}_s1", t.stride(1))
+    grads = [torch.empty_like(t) if want and t is not None and key != "jac"
+             else None
+             for (key, _), t, want in zip(_INPUTS, inputs, needs)]
+    d = _Gradients(*(None if t is None else t.data_ptr()
+                     for (key, _), t in zip(_INPUTS, grads) if key != "jac"))
+    _build.launch("uvtex_rows_bwd", "uvtex_rows_backward", "PiPP",
+                  ctypes.byref(arg), n, ctypes.byref(g), ctypes.byref(d),
+                  like=inputs[0], counter=uvtex_rows_backward,
+                  launched=n > 0)
+    return tuple(grads)
+
+
+class _UVTexRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, campos, *inputs):
+        out = uvtex_rows_forward(campos, *inputs)
+        ctx.save_for_backward(*inputs)
+        ctx.campos = campos
+        # absent cotangents stay None: G' reads them as zeros, no fill
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_table, g_uv_rows):
+        grads = uvtex_rows_backward(ctx.campos, ctx.saved_tensors, g_table,
+                                    g_uv_rows, ctx.needs_input_grad[1:])
+        return (None, *grads)
+
+
+def uvtex_rows(proj: ProjectedGaussians, extra_attrs, xyz, scaling, rotation,
+               uvs, grad_uvs, campos) -> tuple:
+    """(table (N, 16 + E), uv_rows (N, 24)) of the stage-3 render
+    (``uvtex_rows_plain``'s outputs), differentiable in xyz, scaling,
+    rotation, uvs, proj's means2d, depths, conics, opacities, normals and
+    colors (the base colours), and extra_attrs; grad_uvs (J) is a constant.
+
+    campos: the camera centre, the Camera's numpy array.  CPU tensors take
+    ``uvtex_rows_plain``; CUDA tensors one launch of kernel G, and one of
+    G' in the backward where an input needs a gradient."""
+    if xyz.device.type == "cpu":
+        return uvtex_rows_plain(proj, extra_attrs, xyz, scaling, rotation,
+                                uvs, grad_uvs, torch.as_tensor(
+                                    campos, dtype=torch.float32))
+    return _UVTexRows.apply(campos, xyz, scaling, rotation, uvs,
+                            grad_uvs.detach(), proj.means2d, proj.depths,
+                            proj.conics, proj.opacities, proj.normals,
+                            proj.colors, extra_attrs)
+
+
+uvtex_rows.launches = 0
+uvtex_rows_backward.launches = 0
 
 
 def ray_constants(camera: Camera, row_offset: Optional[int] = None) -> np.ndarray:
@@ -276,21 +437,23 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
     from texgs_torch.kernels.uvtex_mlist import mlist_pairs
 
     path = resolve_backends(backend, tex_backend)
-    base_colors = residual_sh_colors(shs, xyz, torch.as_tensor(
-        camera.camera_center, device=xyz.device), active_sh_degree)
+    # the camera centre goes to the device only where the SH residual or
+    # the dense oracle reads it there; kernel G takes it by value
+    base_colors = residual_sh_colors(shs, xyz, camera.camera_center,
+                                     active_sh_degree)
     proj = proj._replace(colors=base_colors)
 
     append_ns = with_no_sh and shs is not None and active_sh_degree > 0
     extra_attrs = base_colors - 0.5 if append_ns else None
     n_extra = 0 if extra_attrs is None else extra_attrs.shape[1]
 
-    tables = build_uvtex_tables(xyz, scaling, rotation, uvs, grad_uvs,
-                                torch.as_tensor(camera.camera_center,
-                                                device=xyz.device))
     if path == "reference":
         if row_offset is not None:
             raise ValueError("band rendering needs a tiled backend, not "
                              "reference")
+        tables = build_uvtex_tables(xyz, scaling, rotation, uvs, grad_uvs,
+                                    torch.as_tensor(camera.camera_center,
+                                                    device=xyz.device))
         out = rasterize_uvtex_reference(proj, tables, texture, camera, bg,
                                         extra_attrs, normalize_depth,
                                         filter_mode=filter_mode)
@@ -303,8 +466,10 @@ def rasterize_uvtex(proj: ProjectedGaussians, scaling, rotation, xyz,
                             width)
         # kernel A, or kernels 1, 2, 1' and 2', take the tiles heaviest first
         pairs = with_tile_order(pairs)
-    table = build_gauss_table(proj, extra_attrs)
-    uv_rows, rays = build_uv_rows(tables), ray_constants(camera, row_offset)
+    # kernel G (or its plain version on the CPU) builds both row tables
+    table, uv_rows = uvtex_rows(proj, extra_attrs, xyz, scaling, rotation,
+                                uvs, grad_uvs, camera.camera_center)
+    rays = ray_constants(camera, row_offset)
     gx = grid_shape(height, width)[1]
     with span("render.blend"):
         if path == "fused":

@@ -13,10 +13,10 @@ Checks:
                 depth (covered pixels), norm; gradients into xyz, scaling,
                 rotation, opacity, f_dc and f_rest
   uvtex       : uv_tex_render at m = 32 on the two-kernel path
-                (backend "pallas": kernels P, 1, 2, B, P', 1', 2', B'): the
-                image; gradients into the texture, the uvs and xyz
-  uvtex_fused : the same on the fused path (backend "auto": P, A, B, P',
-                A', B'), the port's main path
+                (backend "pallas": kernels P, G, 1, 2, B, P', G', 1', 2',
+                B'): the image; gradients into the texture, the uvs and xyz
+  uvtex_fused : the same on the fused path (backend "auto": P, G, A, B,
+                P', G', A', B'), the port's main path
   tex_term    : kernels B and B' on a coherent M-list: the term, and its
                 gradients into the M-list's live slots and the texture
 
@@ -131,9 +131,10 @@ def _in_frame(outs, n_tiles, span):
 
 @contextlib.contextmanager
 def plain_kernels(band=None, seen=None):
-    """Every kernel wrapper on the render paths (P, 1, 2, A, B with their
-    backwards) swapped for its plain PyTorch version, differentiable by
-    autograd, inside the block.
+    """Every kernel wrapper on the render paths (P, G, 1, 2, A, B with
+    their backwards) swapped for its plain PyTorch version, differentiable
+    by autograd, inside the block: the twin's renders check kernels P, G,
+    1, 2, A and B and, through its gradients, P', G', 1', 2', A' and B'.
 
     band: (r0, r1, gx), the tile rows the plain versions compute; the
     other tiles' outputs are zeros (a cotangent masked to the band sees no
@@ -144,6 +145,7 @@ def plain_kernels(band=None, seen=None):
     from texgs_torch.kernels import tex_term as kt
     from texgs_torch.kernels import uvtex_fused as kf
     from texgs_torch.kernels import uvtex_mlist as km
+    from texgs_torch.kernels import uvtex_raster as kg
     from texgs_torch.kernels.reference import TILE
 
     def scan(fn, pairs_at):
@@ -185,7 +187,14 @@ def plain_kernels(band=None, seen=None):
                                 on_device(world_view), on_device(full_proj),
                                 on_device(campos), *args, **kw)
 
+    def rows(proj, extra_attrs, xyz, scaling, rotation, uvs, grad_uvs,
+             campos):
+        return kg.uvtex_rows_plain(
+            proj, extra_attrs, xyz, scaling, rotation, uvs, grad_uvs,
+            torch.as_tensor(campos, dtype=torch.float32, device=xyz.device))
+
     with _swapped([(kp, "project_gaussians", project),
+                   (kg, "uvtex_rows", rows),
                    (kr, "raster_pairs", scan(kr.raster_scan, 1)),
                    (km, "mlist_pairs", scan(km.mlist_only_scan, 2)),
                    (kf, "fused_pairs", scan(kf.mlist_scan, 2)),
