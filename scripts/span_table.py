@@ -33,10 +33,10 @@ import timeit
 sys.path.insert(0, os.getcwd())
 
 ROOFLINE_FNS = ("uvtex_fused", "uvtex_fused_bwd", "tex_term", "tex_term_bwd",
-                "raster", "raster_bwd")
+                "raster", "raster_bwd", "hash_encode", "hash_encode_bwd")
 # (the span a step or frame opens, the metrics' suffix) by driver kind
 KINDS = {"train_loop": ("step", "train"), "gs1_train_loop": ("step", "gs1"),
-         "view_loop": ("view", "view")}
+         "uv2_train_loop": ("step", "uv2"), "view_loop": ("view", "view")}
 
 
 def span_cost_us(n: int = 200_000) -> tuple[float, float]:

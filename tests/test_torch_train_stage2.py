@@ -5,7 +5,10 @@ Both models load the same numpy state (texgs's ``state_dict()``) and the
 same stage-1 checkpoint and cloud.  UV nets of emb 16 and an inverse net
 with a 2-level hash grid; every stage-2 loss is on, and
 ``max_inverse_points`` is below the pixel count, so the inverse loss picks
-its pixels by top-k.  The port's step takes texgs's draws (the pixel
+its pixels by top-k.  At ``max_inverse_points`` 0 the port's loss takes
+the masked pixels' world points, compacted once per view and cached,
+where texgs carries every pixel weighted by its mask: one step of each
+from the same state and draws agrees at the same tolerances.  The port's step takes texgs's draws (the pixel
 scores, the sphere and cap samples that texgs's ``_train_step`` derives
 from its key) and texgs's cached depth and alpha, so the comparison
 isolates the step.  Tolerances, as the stage-3 test holds them: each
@@ -146,6 +149,74 @@ def trained(stage1_files):
         model.optimize_step(it, 100, Cfg({}), {})
         run["sd"].append((jmodel.state_dict(), model.state_dict()))
     return model, run
+
+
+@pytest.fixture(scope="module")
+def compacted(stage1_files):
+    """One step of texgs and of the port at ``max_inverse_points`` 0 from
+    the same state, view, frozen render and draws."""
+    cfg = dict(cfg_with(stage1_files), max_inverse_points=0)
+    jmodel = JaxModel(JCfg(cfg), logging.getLogger("texgs-test"), "/x")
+    jmodel.initialize(None, None)
+    jmodel.bind_train_cfg(JCfg({}), [0, 0, 0])
+    jmodel.setup_optim(JCfg(OPTIM_CFG))
+    model = from_jax_state(jmodel.state_dict(), Cfg(cfg), device="cpu",
+                           optim_cfg=Cfg(OPTIM_CFG))
+    model.bind_train_cfg(Cfg({}), [0, 0, 0])
+    jcam, tcam = camera()
+    model._depth_alpha_cache[(tcam.uid, tcam.image_name)] = tuple(
+        torch.as_tensor(np.array(a)) for a in jmodel.depth_alpha(jcam))
+    draws = texgs_draws(jmodel, SIZE * SIZE)
+    jstats = jmodel.compute_loss(1, 100, jcam, None, JCfg(LOSS_CFG))[1]
+    jstats = jmodel.flush() or jstats
+    _, stats, _ = model.compute_loss(1, 100, tcam, None, Cfg(LOSS_CFG),
+                                     draws=draws)
+    grads = tuple({k: np.asarray(v) / 0.1 for k, v in
+                   flatten_tree(s["optim_state"]["mu"]).items()}
+                  for s in (jmodel.state_dict(), model.state_dict()))
+    return model, tcam, ({k: float(v) for k, v in jstats.items()},
+                         {k: float(v) for k, v in stats.items()}), grads
+
+
+def test_masked_points_losses_match_texgs_all_pixels(compacted):
+    _, _, (want, got), _ = compacted
+    assert set(got) == set(want) and "Linv" in got
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
+
+
+def test_masked_points_gradients_match_texgs_all_pixels(compacted):
+    _, _, _, (want, got) = compacted
+    assert set(got) == set(want)
+    for k in sorted(want):
+        a, b = want[k].astype(np.float32), got[k].astype(np.float32)
+        denom = np.abs(a).max() + 1e-8
+        np.testing.assert_allclose(b / denom, a / denom, atol=2e-3,
+                                   err_msg=f"grad mismatch: {k}")
+        assert np.abs(b).max() > 0, k
+
+
+def test_cached_points_are_the_masked_pixels(compacted):
+    from texgs_torch.train.uv_map_gaussian3d import depth2world
+    model, tcam, _, _ = compacted
+    depth, alpha, _, _ = model.depth_alpha(tcam)
+    fresh = depth2world(depth[0], tcam.full_proj, tcam.zfar,
+                        tcam.znear).reshape(-1, 3)[alpha.reshape(-1) > 0.5]
+    points = model.inverse_points(tcam)
+    assert 0 < points.shape[0] < SIZE * SIZE
+    assert torch.equal(points, fresh)
+
+
+def test_a_second_step_on_a_view_runs_no_depth2world(compacted, monkeypatch):
+    from texgs_torch.train import uv_map_gaussian3d as U
+    model, tcam, _, _ = compacted
+    calls = []
+    monkeypatch.setattr(U, "depth2world",
+                        lambda *a: calls.append(1) or pytest.fail("called"))
+    cached = model.inverse_points(tcam)
+    _, stats, _ = model.compute_loss(2, 100, tcam, None, Cfg(LOSS_CFG))
+    assert not calls and np.isfinite(float(stats["Linv"]))
+    assert model.inverse_points(tcam) is cached
 
 
 def test_losses_match(trained):

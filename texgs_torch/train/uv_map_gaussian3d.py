@@ -5,19 +5,23 @@ The Gaussians come frozen from the stage-1 checkpoint ``cfg.init_from``;
 the trainables are the UVNet, the InvUVNet and the geometry embedding.
 Per iteration, four gated losses (texgs :154-211):
   Linv     -- cycle |x - inv(uv(x))|^2 on depth-unprojected surface points
-              (alpha > 0.5), at most ``max_inverse_points`` of them;
+              (alpha > 0.5): at ``max_inverse_points`` 0 (the published
+              loss) exactly the masked pixels, at a positive count a
+              random top-k subset of them;
   Lchamfer -- bidirectional chamfer of inverse-mapped sphere samples
               against the pseudo ground-truth cloud ``cfg.pcd_load_from``;
   Lpatch   -- one-directional chamfer of a directional cap's samples;
   Linv2    -- sphere cycle |uv(inv(s)) - s|^2.
 The Gaussians are frozen, so each camera's depth and alpha are rendered
 once (kernel 1; the dense oracle with ``model_cfg.backend: reference``)
-and cached by (uid, image_name).  The step takes its random
-draws as arguments (``draws``): ``compute_loss`` draws them from the
-model's generator where texgs derives them from ``jax.random`` keys, so a
-test can hand the port texgs's draws.  Every inverse-net input of a step
-goes through the net in one batch, so its hash grid gathers (kernel K5)
-once a step.
+and cached by (uid, image_name); at ``max_inverse_points`` 0 the masked
+world points are a constant of the view too, compacted on its first use
+and cached beside them, so a step runs no ``depth2world``.  The step
+takes its random draws as arguments (``draws``): ``compute_loss`` draws
+them from the model's generator where texgs derives them from
+``jax.random`` keys, so a test can hand the port texgs's draws.  Every
+inverse-net input of a step goes through the net in one batch, so its
+hash grid gathers (kernel K5) once a step.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from texgs_torch.nets.uv_net import (InvUVNet, UVNet, patch_sample_sphere,
                                      sample_sphere)
 from texgs_torch.train import optim
 from texgs_torch.utils.schedules import warmup_multistep
+from texgs_torch.utils.spans import span, spanned
 
 LAMBDAS = ("inverse", "chamfer", "patch_chamfer", "inverse2")
 
@@ -92,7 +97,11 @@ def inverse_world_points(depth, alpha, camera: Camera,
 
 
 def masked_cycle_loss(world, wmask, inv):
+    """texgs's sum(err * mask) / (sum(mask) + 1e-6); with ``wmask`` None
+    every row is a masked point and the count is the row count."""
     err = ((world - inv) ** 2).sum(-1)
+    if wmask is None:
+        return err.sum() / (err.shape[0] + 1e-6)
     return (err * wmask).sum() / (wmask.sum() + 1e-6)
 
 
@@ -119,6 +128,7 @@ class UVMapGaussian3D:
         self.pcd: Optional[torch.Tensor] = None  # (M, 3) pseudo ground truth
         self.bg = torch.zeros(3, device=self.device)
         self._depth_alpha_cache: dict = {}
+        self._points_cache: dict = {}      # masked world points, by view
         self._step_count = 0
 
     def bind_train_cfg(self, train_cfg: Optional[Cfg], bg) -> None:
@@ -136,7 +146,7 @@ class UVMapGaussian3D:
         self.gauss = {k: torch.as_tensor(np.array(p[k], np.float32)[:n],
                                          device=self.device)
                       for k in ("xyz", "scaling", "rotation", "opacity")}
-        self._depth_alpha_cache = {}
+        self._depth_alpha_cache, self._points_cache = {}, {}
         if self.cfg.pcd_load_from:
             self.pcd = torch.as_tensor(np.load(self.cfg.pcd_load_from),
                                        dtype=torch.float32, device=self.device)
@@ -170,17 +180,32 @@ class UVMapGaussian3D:
         key = (camera.uid, camera.image_name)
         if key not in self._depth_alpha_cache:
             g = self.gauss
-            rot = g["rotation"] / (torch.linalg.norm(
-                g["rotation"], dim=-1, keepdim=True) + 1e-12)
-            out = render(camera, xyz=g["xyz"],
-                         opacity=torch.sigmoid(g["opacity"]),
-                         scaling=torch.exp(g["scaling"]), rotation=rot,
-                         override_color=torch.zeros_like(g["xyz"]),
-                         bg_color=self.bg,
-                         backend=self.cfg.get_or("backend", "auto"))
+            with span("render"):
+                rot = g["rotation"] / (torch.linalg.norm(
+                    g["rotation"], dim=-1, keepdim=True) + 1e-12)
+                out = render(camera, xyz=g["xyz"],
+                             opacity=torch.sigmoid(g["opacity"]),
+                             scaling=torch.exp(g["scaling"]), rotation=rot,
+                             override_color=torch.zeros_like(g["xyz"]),
+                             bg_color=self.bg,
+                             backend=self.cfg.get_or("backend", "auto"))
             self._depth_alpha_cache[key] = (out["depth"], out["alpha"],
                                             out["norm"], out["render"])
         return self._depth_alpha_cache[key]
+
+    @torch.no_grad()
+    def inverse_points(self, camera: Camera) -> torch.Tensor:
+        """The published inverse loss's surface points: the cached depth
+        unprojected to world space at exactly the pixels with alpha > 0.5,
+        (M, 3) in pixel order, compacted on the view's first use and cached
+        by (uid, image_name)."""
+        key = (camera.uid, camera.image_name)
+        if key not in self._points_cache:
+            depth, alpha, _, _ = self.depth_alpha(camera)
+            world = depth2world(depth[0], camera.full_proj, camera.zfar,
+                                camera.znear).reshape(-1, 3)
+            self._points_cache[key] = world[alpha.reshape(-1) > 0.5]
+        return self._points_cache[key]
 
     # ---------------------------------------------------------- training
     def _flags(self, cur_iter: int, lc: Cfg) -> tuple:
@@ -215,23 +240,31 @@ class UVMapGaussian3D:
     def loss_terms(self, depth, alpha, camera: Camera, draws: dict,
                    flags: tuple, lambdas: dict):
         """The gated stage-2 losses (texgs ``_train_step``'s ``loss_fn``)
-        for the given draws.  Returns (loss, stats)."""
+        for the given draws.  Returns (loss, stats).  At
+        ``max_inverse_points`` 0 the inverse loss takes ``camera``'s cached
+        ``inverse_points`` (``depth`` and ``alpha`` are the cached ones)."""
         use_inv, use_chamfer, use_patch, use_inv2 = flags
         geo = self.geo_emb
         # every inverse-net input in one batch: one hash-grid gather
         inv_in, stats = [], {}
         if use_inv:
-            world, wmask = inverse_world_points(
-                depth, alpha, camera, draws.get("score"),
-                int(self.cfg.get_or("max_inverse_points", 0)))
-            inv_in.append(self.uv_net(world, geo))
+            n_points = int(self.cfg.get_or("max_inverse_points", 0))
+            with span("uv2.points"):
+                if n_points:
+                    world, wmask = inverse_world_points(
+                        depth, alpha, camera, draws.get("score"), n_points)
+                else:
+                    world, wmask = self.inverse_points(camera), None
+            with span("uv2.uv_net"):
+                inv_in.append(self.uv_net(world, geo))
         if use_chamfer or use_inv2:
             inv_in.append(draws["sample_uvs"])
         if use_patch:
             inv_in.append(draws["patch_uvs"])
-        outs = (list(torch.split(self.inv_uv_net(torch.cat(inv_in), geo),
-                                 [len(x) for x in inv_in]))
-                if inv_in else [])
+        with span("uv2.inv_uv_net"):
+            outs = (list(torch.split(self.inv_uv_net(torch.cat(inv_in), geo),
+                                     [len(x) for x in inv_in]))
+                    if inv_in else [])
 
         loss = torch.zeros((), device=self.device)
         if use_inv:
@@ -241,22 +274,26 @@ class UVMapGaussian3D:
         if use_chamfer or use_inv2:
             sample_inv = outs.pop(0)
         if use_chamfer:
-            lch = chamfer_distance(sample_inv, self.pcd)
+            with span("uv2.chamfer"):
+                lch = chamfer_distance(sample_inv, self.pcd)
             loss = loss + lambdas["chamfer"] * lch
             stats["Lchamfer"] = lch
         if use_patch:
-            lpch = chamfer_distance(outs.pop(0), self.pcd,
-                                    single_directional=True)
+            with span("uv2.chamfer"):
+                lpch = chamfer_distance(outs.pop(0), self.pcd,
+                                        single_directional=True)
             loss = loss + lambdas["patch_chamfer"] * lpch
             stats["Lpatch_chamfer"] = lpch
         if use_inv2:
-            inv_uvs = self.uv_net(sample_inv, geo)
+            with span("uv2.uv_net"):
+                inv_uvs = self.uv_net(sample_inv, geo)
             linv2 = ((inv_uvs - draws["sample_uvs"]) ** 2).sum(-1).mean()
             loss = loss + lambdas["inverse2"] * linv2
             stats["Linv2"] = linv2
         stats["total_loss"] = loss
         return loss, stats
 
+    @spanned("step")
     def compute_loss(self, cur_iter: int, total_iter: int, viewpoint: Camera,
                      render_unused, loss_cfg: Cfg, draws: Optional[dict] = None):
         """One training step on ``viewpoint``: the cached depth and alpha,
@@ -274,11 +311,14 @@ class UVMapGaussian3D:
             p.requires_grad_(True)
             p.grad = None
         with torch.enable_grad():
-            loss, stats = self.loss_terms(depth, alpha, viewpoint, draws,
-                                          flags, lambdas)
-            if loss.requires_grad:
-                loss.backward()
-        self.adam.step(leaves, self._lrs(leaves))
+            with span("loss"):
+                loss, stats = self.loss_terms(depth, alpha, viewpoint, draws,
+                                              flags, lambdas)
+            with span("backward"):
+                if loss.requires_grad:
+                    loss.backward()
+        with span("adam"):
+            self.adam.step(leaves, self._lrs(leaves))
         stats = {k: v.detach() for k, v in stats.items()}
         return stats["total_loss"], stats, {}
 

@@ -21,7 +21,14 @@ Spans of the stage-1 model (``train/gaussian3d.py``): ``step``
 ``kernels/tile_raster.py``'s ``rasterize_tiled``), ``loss``, ``backward``
 (the densification stats too), ``adam`` (absent where surgery skips the
 step) and, outside ``step``, ``surgery`` (each prune, densification and
-reset of ``optimize_step``).  Any other caller of ``render`` or
+reset of ``optimize_step``).
+
+Spans of the stage-2 model (``train/uv_map_gaussian3d.py``): ``step``
+(``compute_loss``), ``render`` (a view's frozen render, on its first use
+only), ``loss`` (inside it ``uv2.points``, the inverse loss's surface
+points, ``uv2.uv_net``, each UV-net call, ``uv2.inv_uv_net``, the one
+inverse-net call with ``kernel.hash_encode`` inside, and ``uv2.chamfer``),
+``backward`` and ``adam``.  Any other caller of ``render`` or
 ``rasterize_tiled`` opens the ``render.*`` spans too.  Each kernel wrapper
 with a ``.launches`` counter runs in ``kernel.<name>``.
 """
