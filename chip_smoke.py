@@ -50,6 +50,20 @@ one card.  Phases, in order; any failure exits non-zero:
                 their bounds (300 and 316 B a Gaussian), and profiled; their
                 entries carry G's launches over phase 5 and G''s over phase
                 7 (run after phase 4b);
+  4d. adam   -- the Adam kernel (csrc/adam.cu) on the benchmark's stage-3
+                leaves (scene.py's state at iteration 10,000: 100,000
+                Gaussians at SH 3, the UV nets and embedding, the 1024^2
+                texture; the three Adams at the cell's step counts) with
+                random gradients, none for the inverse net (the DTU
+                config has no inverse loss): two steps of the three Adams
+                against adam_plain on copies, every parameter and moment
+                bit for bit; the device launches of both (3 and the plain
+                chain's); the three launches timed queued and host-launched
+                beside their bound (28 B an element, 24 without a
+                gradient), the 0.30 ms target and the plain chain's time,
+                Adam.step's host time, and profiled; the kernel's ptxas
+                report; its entry carries its launches over phase 7 (run
+                after phase 4c);
   5. main    -- 3 orbit views through TextureGaussian3D.visual_step, a
                 change_texture(chessboard, mode=0) retexture, the 3 views
                 again; every kernel's launch count is read over this phase
@@ -71,7 +85,8 @@ one card.  Phases, in order; any failure exits non-zero:
                 finite, the last 5 steps' mean loss must lie below the
                 first 5's, and kernels A, A', B, B', P, P', G, G', the
                 fused hash encode K5' and its backward K5'' must each launch
-                once a step (the K5 gather never);
+                once a step (the K5 gather never), the Adam kernel three
+                times (one an optimiser);
   8. train kernels -- A' and B' against their plain versions on the
                 captured arguments;
   9. train timings -- the step's median time, each kernel's time, plain
@@ -224,7 +239,7 @@ one card.  Phases, in order; any failure exits non-zero:
                 at least the first card reading less 1.5 dB.
 
 The line before the last is a JSON object with one entry per kernel
-(sixteen); the last line is {"ok": true, "device": {...}}.
+(seventeen); the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --golden-seeds 0,1,2
 
@@ -1263,6 +1278,7 @@ def train_phases(torch, model, cams, gt_views):
     from texgs_torch.kernels import uvtex_raster as kg
     from texgs_torch.kernels.cubemap import sample_cubemap
     from texgs_torch.nets import hash_encode as ke
+    from texgs_torch.train import optim
 
     # ------------------------------------------------------------ 7. train
     step = stage3_stepper(model, cams, gt_views)
@@ -1291,10 +1307,12 @@ def train_phases(torch, model, cams, gt_views):
                 "project": pj.project_gaussians,
                 "project_bwd": pj.project_gaussians_backward,
                 "uvtex_rows": kg.uvtex_rows,
-                "uvtex_rows_bwd": kg.uvtex_rows_backward}
+                "uvtex_rows_bwd": kg.uvtex_rows_backward,
+                "adam": optim.adam_step}
+    a_step = {"hash_gather": 0, "adam": 3}   # else once a step
     launches = check_train_run(
         torch, "train", model, step, counters,
-        {name: 0 if name == "hash_gather" else STEPS for name in counters})
+        {name: a_step.get(name, 1) * STEPS for name in counters})
 
     # --------------------------------------------------- 8. train kernels
     a_args = seen["fused_pairs_backward"]
@@ -3952,6 +3970,122 @@ def rows_phase(torch, device, launches):
                   gb_ms, plain_all_ms, gb_bound, gb_by, err_gb)]
 
 
+# csrc/adam.cu: an element reads p, g, m and v and writes p, m and v (24 B
+# without a gradient), in ~12 f32 operations; the target for stage 3's
+# three launches
+ADAM_BYTES, ADAM_BYTES_NO_GRAD, OPS_ADAM = 28, 24, 12
+ADAM_TARGET_MS = 0.30
+
+
+def adam_phase(torch, device, launches):
+    """Phase 4d (see the module docstring).  launches: the kernel's
+    launches over phase 7's steps.  Returns its entry."""
+    from benchmark import harness, program, scene
+    from benchmark.drivers import train_loop
+    from texgs_torch import _build
+    from texgs_torch.train import optim
+
+    cfg = harness.cell("tgs3-dtu-train")["config"]
+    state, _ = scene.make_state(cfg, 0, device)
+    hy = train_loop.hyper(cfg, scene.spiral_views(cfg["assumed"]["views"]))
+    model = program.build_model(cfg, state, hy, device, train=True)
+    del state
+    groups = [(model.adam_g, model._gauss_leaves()),
+              (model.adam_uv, model._uv_leaves()),
+              (model.adam_tex, model._tex_leaves())]
+    gen = torch.Generator(device=device).manual_seed(25)
+    lrs, n_bytes, n_elems, n_no_grad = [], 0, 0, 0
+    for _, leaves in groups:
+        lrs.append({})
+        for i, (k, p) in enumerate(leaves.items()):
+            lrs[-1][k] = 1e-4 * (1 + i % 7)
+            p.grad = (None if k.startswith("inv_uv_net.") else
+                      1e-3 * torch.randn(p.shape, generator=gen,
+                                         device=device))
+            n_no_grad += p.grad is None
+            n_elems += p.numel()
+            n_bytes += p.numel() * (ADAM_BYTES_NO_GRAD if p.grad is None
+                                    else ADAM_BYTES)
+    counts = [sorted(set(adam.count.values())) for adam, _ in groups]
+    log(f"[adam] the Adam kernel on the stage-3 cell's "
+        f"{sum(len(lv) for _, lv in groups)} leaves in 3 Adams "
+        f"({n_elems / 1e6:.2f} M elements, {n_no_grad} leaves without a "
+        f"gradient), step counts {counts}")
+    # the plain chain's arguments on copies: (p, g, m, v, lr, count)
+    plain = {k: [p.clone(), p.grad, adam.mu[k].clone(), adam.nu[k].clone(),
+                 lr[k], adam.count[k]]
+             for (adam, leaves), lr in zip(groups, lrs)
+             for k, p in leaves.items()}
+
+    def kernel_step():
+        for (adam, leaves), lr in zip(groups, lrs):
+            adam.step(leaves, lr)
+
+    def plain_step():
+        for args in plain.values():
+            optim.adam_plain(*args)
+
+    before = optim.adam_step.launches
+    for _ in range(2):
+        kernel_step()
+        for args in plain.values():
+            args[5] += 1
+        plain_step()
+    torch.cuda.synchronize()
+    if optim.adam_step.launches - before != 6:
+        fail(f"two steps of the three Adams launched the kernel "
+             f"{optim.adam_step.launches - before} times, not 6")
+    off = [k for (adam, leaves) in groups for k, p in leaves.items()
+           if not (torch.equal(p, plain[k][0])
+                   and torch.equal(adam.mu[k], plain[k][2])
+                   and torch.equal(adam.nu[k], plain[k][3]))]
+    log(f"  two steps: every parameter and moment equal to the plain "
+        f"chain's bit for bit: {not off}")
+    if off:
+        fail(f"the Adam kernel differs from the plain chain on {off}")
+
+    k_launches, k_ops = device_launches(torch, kernel_step)
+    p_launches, _ = device_launches(torch, plain_step)
+    log(f"[adam] device launches of the three Adams: kernel {k_launches} "
+        f"({k_ops}), the plain chain {p_launches}")
+    if k_launches != 3:
+        fail(f"the three Adams launched {k_launches} device operations, "
+             "not 3")
+    ms, host_ms = kernel_ms(torch, kernel_step)
+    plain_ms, plain_host_ms = kernel_ms(torch, plain_step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        kernel_step()
+    host_us = (time.perf_counter() - t0) / REPS * 1e6
+    torch.cuda.synchronize()
+    a_bound, a_by = bound(n_bytes, n_elems * OPS_ADAM)
+    log(f"[time] the Adam kernel, stage 3's three launches: {ms:.4f} ms "
+        f"queued (host-launched {host_ms:.4f}; Adam.step's host time "
+        f"{host_us:.0f} us for the three), bound {a_bound:.4f} ms "
+        f"({n_bytes / 1e6:.1f} MB, by {a_by}), target {ADAM_TARGET_MS}; "
+        f"plain chain {plain_ms:.4f} ms queued (host-launched "
+        f"{plain_host_ms:.3f})")
+    if ms > ADAM_TARGET_MS:
+        log(f"  the kernel is above its {ADAM_TARGET_MS} ms target")
+    profile_device(torch, "the Adam kernel, three Adams", kernel_step,
+                   host_ms)
+    profile_device(torch, "the plain Adam chain, three Adams",
+                   plain_step, plain_host_ms)
+    report = _build.library_path("adam")
+    report = report.with_name(report.name + ".log")
+    for line in (report.read_text().splitlines() if report.exists() else
+                 ["(no report: the library was built before this run)"]):
+        if "registers" in line or "spill" in line or "stack" in line or \
+                "(no report" in line:
+            log(f"  adam ptxas: {line.strip()}")
+    del model, groups, plain
+    torch.cuda.empty_cache()
+    return entry("adam", "texgs_torch/csrc/adam.cu",
+                 "none (XLA ops: texgs/train/optim.py update)", launches,
+                 ms, plain_ms, a_bound, a_by, 0.0)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4271,6 +4405,8 @@ def main(argv=None) -> int:
     kernels += rows_phase(torch, device, {
         "uvtex_rows": launches["uvtex_rows"],
         "uvtex_rows_bwd": train_launches["uvtex_rows_bwd"]})
+    # ------------------------------------------------------------ 4d. adam
+    kernels.append(adam_phase(torch, device, train_launches["adam"]))
     del model, a_args, b_args, got_a, want_a, got_b, want_b, got_maps
     torch.cuda.empty_cache()
 

@@ -64,6 +64,9 @@ against autograd through the plain chain at 1e-5 of the largest entry of
 each column of each input's gradient: a flat disc's 1/s^2 on its thin axis
 (~2e17 in the benchmark's scene) dominates its input's largest entry, and
 must set no tolerance for the in-plane columns.
+The Adam kernel (csrc/adam.cu) rounds the plain chain's operations one at
+a time in its order, its divisions by the bias corrections as torch's
+CUDA kernels take them: parameters and moments are held bit for bit.
 """
 
 import math
@@ -2615,3 +2618,281 @@ def test_uvtex_rows_engage_in_each_stage3_cell(cuda_device, tmp_path, cell):
           f"kernel.uvtex_rows_bwd {bwd['launches']} in {n} renders")
     assert fwd["launches"] == n and fwd["syncs"] == 0
     assert bwd["launches"] == grads * n and bwd["syncs"] == 0
+
+
+# ------------------------------------------- the Adam step (csrc/adam.cu)
+# the stage-3 model's leaves (benchmark cell tgs3-dtu-train, 1,000
+# Gaussians, a 16^2 texture): the Gaussians', the UV nets' and geometry
+# embedding's, the texture's
+STAGE3_LEAVES = {
+    "xyz": (1000, 3), "opacity": (1000, 1), "scaling": (1000, 3),
+    "rotation": (1000, 4), "shs": (1000, 15, 3),
+    **{f"{net}.{part}.{kind}.{i}": shape
+       for net, first in (("uv_net", 3), ("inv_uv_net", 32))
+       for part, layers in (("pre_mlp", ((128, first), (128, 128))),
+                            ("mlp", ((128, 128), (128, 128), (3, 128))))
+       for i, w in enumerate(layers)
+       for kind, shape in (("w", w), ("b", w[:1]))},
+    "inv_uv_net.hashgrid.table": (8, 4096, 4), "geo_emb": (128,),
+    "texture": (6, 16, 16, 3)}
+ADAM_CASES = ("stage3", "no_grad", "zeroed", "odd", "offset", "empty", "many")
+
+
+def adam_case(case, seed=0):
+    """CPU leaves of an Adam for a case, {name: tensor}, and the names of
+    the leaves that get no gradient.  ``stage3``: STAGE3_LEAVES, the
+    inverse net without a gradient (the DTU configs have no inverse loss);
+    ``no_grad``: every other leaf without one; ``zeroed``: stage3, one
+    leaf's moments zeroed after the first step and another's count ahead
+    of its neighbours'; ``odd``: sizes that are no multiple of 4 (1, 3, 5,
+    one past a block, one short of two); ``offset``: leaves 4 bytes past an
+    aligned address (the scalar path); ``empty``: a (0, 3) leaf among
+    others; ``many``: 70 leaves, more than one launch's table holds."""
+    rng = np.random.default_rng(seed)
+    if case == "odd":
+        shapes = {f"n{n}": (n,) for n in (1, 3, 5, 4097, 8191)}
+    elif case == "many":
+        shapes = {f"l{i}": (int(rng.integers(1, 600)),) for i in range(70)}
+    elif case == "empty":
+        shapes = {"a": (7, 3), "none": (0, 3), "b": (129,)}
+    else:
+        shapes = STAGE3_LEAVES
+    leaves = {k: torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+              for k, s in shapes.items()}
+    no_grad = {"stage3": {k for k in shapes if k.startswith("inv_uv_net.")},
+               "no_grad": set(list(shapes)[1::2])}.get(case, set())
+    return leaves, no_grad
+
+
+def _offset_copy(t, device):
+    """A contiguous copy of ``t`` on ``device`` that starts 4 bytes past
+    a 16-byte aligned address."""
+    buf = torch.empty(t.numel() + 1, device=device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def adam_runs(case, device, steps=3, seed=0):
+    """``steps`` Adam steps of a case's leaves on ``device`` through
+    optim.Adam and, beside it, through optim.adam_plain leaf by leaf on
+    copies, with the same gradients: (Adam, its leaves, the plain chain's
+    (p, m, v) by name, the launches each step added, each step's counts)."""
+    from texgs_torch.train import optim
+
+    cpu, no_grad = adam_case(case, seed)
+    move = _offset_copy if case == "offset" else (
+        lambda t, dev: t.to(dev, copy=True))
+    leaves = {k: move(v, device) for k, v in cpu.items()}
+    adam = optim.Adam(leaves)
+    if case == "offset":
+        for k, v in leaves.items():
+            adam.mu[k], adam.nu[k] = (_offset_copy(torch.zeros_like(v), device)
+                                      for _ in range(2))
+    if case == "zeroed":
+        adam.count["xyz"] = 7
+    plain = {k: [v.clone(), adam.mu[k].clone(), adam.nu[k].clone()]
+             for k, v in leaves.items()}
+    counts = dict(adam.count)
+    rng = np.random.default_rng(seed + 1)
+    lrs = {k: float(rng.uniform(1e-4, 1e-2)) for k in leaves}
+    launched, seen_counts = [], []
+    for step in range(steps):
+        for k, p in leaves.items():
+            g = None if k in no_grad else torch.as_tensor(
+                rng.normal(size=p.shape), dtype=torch.float32)
+            p.grad = None if g is None else move(g, device)
+        before = optim.adam_step.launches
+        adam.step(leaves, lrs)
+        launched.append(optim.adam_step.launches - before)
+        seen_counts.append(dict(adam.count))
+        for k, (p, m, v) in plain.items():
+            counts[k] += 1
+            optim.adam_plain(p, leaves[k].grad, m, v, lrs[k], counts[k])
+        if case == "zeroed" and step == 0:
+            adam.zero_moments("scaling")
+            plain["scaling"][1].zero_()
+            plain["scaling"][2].zero_()
+    return adam, leaves, plain, launched, seen_counts
+
+
+@pytest.mark.parametrize("case", ["stage3", "zeroed", "empty"])
+def test_adam_runs_plain_chain_on_cpu(monkeypatch, case):
+    """On CPU leaves Adam.step runs adam_plain, leaf by leaf, and launches
+    nothing: the same numbers bit for bit, no C call, each leaf's count one
+    step further each step."""
+    from texgs_torch.train import optim
+
+    def no_call(*args, **kwargs):
+        raise AssertionError("a CPU Adam step called a kernel")
+    monkeypatch.setattr(optim._build, "launch", no_call)
+    adam, leaves, plain, launched, counts = adam_runs(case, "cpu")
+    assert launched == [0, 0, 0]
+    start = 7 if case == "zeroed" else 0
+    lead = next(iter(counts[0]))   # xyz where the case has it
+    assert [c[lead] for c in counts] == [start + 1, start + 2, start + 3]
+    for k, (p, m, v) in plain.items():
+        assert torch.equal(leaves[k], p) and torch.equal(adam.mu[k], m) \
+            and torch.equal(adam.nu[k], v), k
+
+
+@pytest.mark.parametrize("n_leaves", [3, 64, 130])
+def test_adam_tables_prefix_scalars_and_chunks(n_leaves):
+    """adam_tables: leaves without an element left out, MAX_LEAVES a table
+    in order, each leaf's blocks at ceil(elements / BLOCK_ELEMS) from a
+    prefix starting at 0, the pointers and sizes as given, and the per-leaf
+    scalars in float32: lr as cast, and 1 / (1 - b^c) taken in double and
+    cast (torch's CUDA division by a Python number on the H100)."""
+    from texgs_torch.train import optim
+
+    rng = np.random.default_rng(n_leaves)
+    rows = [(8 * i + 16, 0 if i % 3 else 8 * i + 32, 8 * i + 48, 8 * i + 64,
+             int(rng.choice([0, 1, 5, 4096, 4097, 20_000])),
+             float(rng.uniform(1e-5, 1e-1)), int(rng.integers(1, 20_000)))
+            for i in range(n_leaves)]
+    kept = [r for r in rows if r[4] > 0]
+    tables = optim.adam_tables(rows)
+    assert [len(t.sizes) for t in tables] == [
+        min(optim.MAX_LEAVES, len(kept) - i)
+        for i in range(0, len(kept), optim.MAX_LEAVES)]
+    got = [row for t in tables for row in zip(
+        t.ptrs.tolist(), t.sizes.tolist(), t.scalars.tolist(),
+        np.diff(t.starts).tolist())]
+    for r, (ptrs, size, scalars, blocks) in zip(kept, got):
+        assert ptrs == list(r[:4]) and size == r[4]
+        assert blocks == math.ceil(r[4] / optim.BLOCK_ELEMS)
+        want = [np.float32(r[5]), np.float32(1.0 / (1.0 - 0.9 ** r[6])),
+                np.float32(1.0 / (1.0 - 0.999 ** r[6]))]
+        assert np.array_equal(np.float32(scalars), np.array(want))
+    for t in tables:
+        assert t.starts[0] == 0 and t.starts.dtype == np.int32
+        assert t.scalars.dtype == np.float32 and t.ptrs.dtype == np.int64
+    assert optim.adam_tables([(16, 0, 32, 48, 0, 1e-3, 1)]) == []
+
+
+@pytest.mark.parametrize("n_leaves", [3, 70])
+def test_adam_step_launches_as_declared(monkeypatch, n_leaves):
+    """On meta tensors with the C call faked: adam_step calls the C entry
+    once a table, with the entry's argument kinds and each table's leaf
+    count, and adds one launch a call to its counter."""
+    from texgs_torch.train import optim
+
+    calls = []
+
+    def function(source, entry, signature):
+        def call(*args):
+            assert len(args) == len(signature)
+            for kind, a in zip(signature, args):
+                assert isinstance(a, int) if kind == "i" else \
+                    isinstance(a, (int, type(None)))
+            calls.append(args[-2])
+            return 0
+        assert (source, entry, signature) == ("adam", "adam_step", "PPPPPiP")
+        return call
+    monkeypatch.setattr(optim._build, "function", function)
+    monkeypatch.setattr(optim._build, "stream_of", lambda t: None)
+    leaves = {f"l{i}": tuple(torch.empty(5, 3, device="meta") for _ in
+                             range(4)) + (1e-3, 1) for i in range(n_leaves)}
+    before = optim.adam_step.launches
+    optim.adam_step(leaves)
+    assert calls == ([3] if n_leaves == 3 else [64, 6])
+    assert optim.adam_step.launches - before == len(calls)
+
+
+@pytest.mark.parametrize("fault", ["dtype", "strided", "device", "grad_shape",
+                                   "moment_shape"])
+def test_adam_step_refuses_what_its_c_entry_cannot_take(monkeypatch, fault):
+    """adam_step refuses, through _build.require and before any C call, a
+    leaf of another dtype, strides or device than the first's, and a
+    gradient or moment of another shape than its leaf's."""
+    from texgs_torch.train import optim
+
+    monkeypatch.setattr(optim._build, "function", None)
+    t = [torch.empty(6, 4, device="meta") for _ in range(4)]
+    bad = {"dtype": 0, "strided": 0, "device": 0, "grad_shape": 1,
+           "moment_shape": 3}[fault]
+    t[bad] = {"dtype": t[0].double(), "strided": t[0].T.contiguous().T,
+              "device": torch.empty(6, 4), "grad_shape": t[1][:, :3],
+              "moment_shape": t[3].reshape(4, 6)}[fault]
+    leaves = {"first": tuple(torch.empty(2, device="meta") for _ in range(4))
+              + (1e-3, 1), "bad": (*t, 1e-3, 1)}
+    with pytest.raises(ValueError, match="^adam_step: .*bad"):
+        optim.adam_step(leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ADAM_CASES)
+def test_adam_kernel_matches_plain(cuda_device, case):
+    """Adam.step on CUDA leaves against adam_plain on the card over 3
+    steps: every parameter and moment bit for bit, each leaf's count one
+    step further a step, and one launch a table a step (two for 70
+    leaves, none counted for the empty leaf)."""
+    adam, leaves, plain, launched, counts = adam_runs(case, cuda_device)
+    torch.cuda.synchronize()
+    assert launched == [2 if case == "many" else 1] * 3
+    start = 7 if case == "zeroed" else 0
+    lead = next(iter(counts[0]))   # xyz where the case has it
+    assert [c[lead] for c in counts] == [start + 1, start + 2, start + 3]
+    assert len({c for step in counts for c in step.values()}) == \
+        (6 if case == "zeroed" else 3)
+    off = [k for k, (p, m, v) in plain.items()
+           if not (torch.equal(leaves[k], p) and torch.equal(adam.mu[k], m)
+                   and torch.equal(adam.nu[k], v))]
+    assert off == []
+    if case == "offset":
+        assert all(p.data_ptr() % 16 == 4 for p in leaves.values())
+
+
+@pytest.mark.cuda
+def test_adam_refuses_a_non_contiguous_gradient_on_the_card(cuda_device):
+    """A CUDA leaf whose gradient is not contiguous is refused with a
+    ValueError from _build.require, and nothing moves: no launch, the leaf,
+    its moments and its count as they were."""
+    from texgs_torch.train import optim
+
+    p = torch.randn(8, 6, device=cuda_device)
+    adam = optim.Adam({"w": p})
+    p.grad = torch.randn(6, 8, device=cuda_device).T
+    before, p0 = optim.adam_step.launches, p.clone()
+    with pytest.raises(ValueError, match="the gradient of w .*non-contiguous"):
+        adam.step({"w": p}, {"w": 1e-3})
+    torch.cuda.synchronize()
+    assert optim.adam_step.launches == before and adam.count["w"] == 0
+    assert torch.equal(p, p0) and not adam.mu["w"].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["gs1-dtu-train", "tgs3-dtu-train",
+                                  "uv2-dtu-train"])
+def test_adam_engages_in_each_training_cell(cuda_device, tmp_path, cell):
+    """On the training cells cut to their test size, a step's adam phase is
+    one launch of the kernel an optimiser (stage 3: three), all inside the
+    ``kernel.adam`` span, with no host sync."""
+    from benchmark.tests.tiny import tiny_cell
+    from texgs_torch.train import optim
+
+    if cell == "gs1-dtu-train":
+        from benchmark.drivers import gs1_train_loop as loop
+        from benchmark.tests.tiny_gs1 import tiny_gs1_cell as tiny
+    elif cell == "uv2-dtu-train":
+        from benchmark.drivers import uv2_train_loop as loop
+        from benchmark.tests.tiny_uv2 import tiny_uv2_cell as tiny
+    else:
+        from benchmark.drivers import train_loop as loop
+
+        def tiny():
+            return tiny_cell(cell)
+    c = tiny()
+    ses = loop.Session(c["config"], c["work"]["traffic_params"], 7,
+                       cuda_device)
+    ses.step()
+    n, per_step = 2, 3 if cell == "tgs3-dtu-train" else 1
+    before = optim.adam_step.launches
+    rows = reduced_spans(tmp_path, ses.step, n)["spans"]
+    assert optim.adam_step.launches - before == per_step * n
+    kernel, own = rows["kernel.adam"], rows["adam"]
+    print(f"{cell}: adam own {own['launches']} launches, kernel.adam "
+          f"{kernel['launches']}, syncs {own['syncs'] + kernel['syncs']} in "
+          f"{n} steps")
+    assert kernel["launches"] == per_step * n and own["launches"] == 0
+    assert own["syncs"] + kernel["syncs"] == 0

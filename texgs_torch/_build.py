@@ -166,9 +166,11 @@ def require(fn: str, arg: str, t, *, like, dtype=torch.float32, shape=None,
     ``shape`` where one is given (None: any size on that axis) and, where
     ``align16``, 16-byte aligned, for a kernel that reads it as float4.
     Reads metadata only: it waits for and copies nothing."""
-    fits = shape is None or (t.dim() == len(shape) and all(
+    # a shape without wildcards compares whole (the common case, and the
+    # fast one: every kernel launch runs these checks on the host)
+    fits = shape is None or t.shape == shape or (t.dim() == len(shape) and all(
         w is None or w == s for w, s in zip(shape, t.shape)))
-    if (t.device != like.device or t.dtype != dtype or not fits
+    if (t.dtype != dtype or t.device != like.device or not fits
             or (contiguous and not t.is_contiguous())):
         want = "contiguous " if contiguous else ""
         want += f"{dtype}" + ("" if shape is None else f" {_shape_text(shape)}")
